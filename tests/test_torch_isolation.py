@@ -1,0 +1,54 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of ``repro``, so they run on a GPU host that has
+neither."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|,|$)", re.MULTILINE)
+
+
+def _port_modules():
+    import repro_torch
+
+    return ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+
+
+def test_every_module_imports_without_jax_or_repro():
+    modules = _port_modules()
+    assert "repro_torch.sim.engine" in modules
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['jaxlib'] = None",
+        "sys.modules['repro'] = None",
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
+        f"for name in {modules!r}:",
+        "    importlib.import_module(name)",
+        "import chip_smoke",
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))",
+        "               for m in sys.modules if sys.modules[m] is not None)",
+        "print('isolated', len(sys.modules))",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
+def test_sources_name_no_jax_or_repro_import():
+    sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 10
+    found = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+             for p in sources for m in FORBIDDEN.finditer(p.read_text())]
+    assert not found, found
