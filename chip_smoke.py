@@ -5,17 +5,33 @@
 Phases (any failure ends the run with a non-zero exit code):
 
 1. device — the card's name and power limit; it must be sm_90;
-2. build — the CUDA kernel from ``src/repro_torch/csrc``;
-3. kernel vs plain version on the card, bit for bit on every output, over
-   N x prev-density cases, multi-bit zone words and a dense node cluster;
-4. replay — the port runs the paper geometry on the CPU, then on the card
-   replaying the same positions: every trace equal bit for bit, and one
-   kernel launch per slot;
-5. free runs on the card — the paper point (N = 200, 8000 slots) and the
-   dense N = 800 point, with wall time, slots/s, launches and sanity
-   checks; then the kernel is held against its plain version bit for bit
-   on that point's own inputs (B = 1) and both are timed, beside the
-   kernel's bound.
+2. build — the CUDA kernels from ``src/repro_torch/csrc``, one nvcc per
+   source, all started together;
+3. kernel — ``pairwise_contacts`` vs its plain version on the card, bit for
+   bit on every output, over N x prev-density cases, multi-bit zone words
+   and a dense node cluster;
+4. merge-kernel — ``gossip_merge_rows`` and ``gossip_merge_rows_scaled``
+   (in both operand orders: ``fold`` off and on) vs their plain versions,
+   bit for bit, over N x D, all/no/mixed rows
+   selected, w in {0, 1, random}, scale 1 and below 1, NaN and inf in
+   unselected peer rows;
+5. replay — the port runs the paper geometry on the CPU (1000 slots), then
+   on the card replaying the same positions: every trace equal bit for bit,
+   and one contact-kernel launch per slot;
+6. learn-replay — the same with Gossip Learning at the learning point
+   (Λ = 10, T_T = 5 s; logreg for 1000 slots, the MLP for 320): every
+   protocol trace equal bit for bit, CPU vs card and learning vs
+   ``learn=None``; the learning traces within tolerance;
+7. free runs on the card — the paper point (N = 200, 8000 slots) and the
+   dense N = 800 point (4000 slots), with wall time, slots/s, launches and
+   sanity checks; then the contact kernel is held against its plain
+   version bit for bit on that point's own inputs (B = 1) and both are
+   timed, beside the kernel's bound;
+8. learn-run — the learning point at full size (N = 200, 8000 slots,
+   logreg) free on the card: accuracy must rise, holders must be no worse
+   than the population; the merge kernel is held against its plain
+   version on the run's own merge inputs and timed; then a defended run
+   (norm clip) does the same for ``gossip_merge_rows_scaled``.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -23,6 +39,7 @@ The line before the last is the per-kernel JSON record; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -39,7 +56,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs.fg_paper import DENSITY, paper_params  # noqa: E402
+from repro_torch.configs.fg_learn import logreg_task, mlp_task  # noqa: E402
+from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
+from repro_torch.kernels import gossip_merge as gm  # noqa: E402
+from repro_torch.sim import learn as learning  # noqa: E402
 from repro_torch.sim.compute import pack_mask  # noqa: E402
 from repro_torch.sim.engine import (SimConfig, _zone_member,  # noqa: E402
                                     effective_zones, mobility_track,
@@ -53,6 +74,14 @@ F32_FLOPS_S = 67e12
 TRACES = ("availability", "busy_frac", "stored_info", "obs_birth",
           "obs_holders", "model_holders", "n_in_rz", "availability_z",
           "stored_info_z", "n_in_rz_z", "t")
+#: The learning point: fig_learning.py's full-size point.
+LEARN_PARAMS = dict(lam=0.05, Lam=10.0, M=1, T_T=5.0)
+#: Card vs CPU tolerances of the learning traces (gradients and accuracy
+#: logits sum in another order on the card; every draw is bit for bit).
+LEARN_TOL = dict(test_acc=(0.0, 2e-3), test_acc_holders=(0.0, 2e-3),
+                 learn_obs=(1e-5, 0.0), theta_var=(1e-3, 1e-7))
+KERNELS = (kc.pairwise_contacts, gm.gossip_merge_rows,
+           gm.gossip_merge_rows_scaled)
 
 
 _START = time.perf_counter()
@@ -214,21 +243,22 @@ def time_kernel(cfg: SimConfig, seed: int) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def same_traces(a, b) -> None:
-    for f in TRACES:
+def same_traces(a, b, what: str = "replayed GPU run != CPU run",
+                traces=TRACES) -> None:
+    for f in traces:
         x, y = getattr(a, f), getattr(b, f)
         if x.shape != y.shape or x.dtype != y.dtype or not np.array_equal(x, y):
-            raise AssertionError(f"replayed GPU run != CPU run on {f}")
+            raise AssertionError(f"{what} on {f}")
 
 
-def check_replay(seed: int = 0, n_slots: int = 2000) -> None:
+def check_replay(seed: int = 0, n_slots: int = 1000) -> None:
     p = paper_params(lam=0.05, M=1)
     cfg = SimConfig(n_slots=n_slots)
     t = time.perf_counter()
     cpu = simulate(p, cfg, seed=seed, device="cpu")
     track = mobility_track(cfg, seed=seed, device="cpu")
     t_cpu = time.perf_counter() - t
-    kc.pairwise_contacts.launches = 0
+    reset_counts()
     t = time.perf_counter()
     gpu = simulate(p, dataclasses.replace(cfg, mobility="replay"), seed=seed,
                    device="cuda", positions=track)
@@ -242,12 +272,13 @@ def check_replay(seed: int = 0, n_slots: int = 2000) -> None:
 
 
 def free_run(label: str, p, cfg: SimConfig, seed: int = 0) -> dict:
-    torch.cuda.synchronize()
-    kc.pairwise_contacts.launches = 0
+    reset_counts()
     t = time.perf_counter()
     out = simulate(p, cfg, seed=seed)                 # default device: cuda
     wall = time.perf_counter() - t
     launches = kc.pairwise_contacts.launches
+    if counts()["gossip_merge_rows"] or counts()["gossip_merge_rows_scaled"]:
+        raise AssertionError(f"{label}: merge kernels ran without learning")
     s0 = int(len(out.t) * cfg.warmup_frac)
     n_rz = float(out.n_in_rz[s0:].mean())
     avail = float(out.availability[s0:].mean())
@@ -313,6 +344,306 @@ def profile_slots(label: str, p, cfg: SimConfig, n_slots: int = 32) -> None:
                   f"x{e.count / n_slots:.1f}" for e in top)))
 
 
+# ------------------------------------------------------------ merge kernels
+
+def merge_bound_ms(n: int, d: int, k: int, scaled: bool) -> tuple[float, str]:
+    """Least time for one merge of ``n`` rows of which ``k`` are selected:
+    own read and out written on every row, s (1 byte) read on every row,
+    peer, w (4 bytes) and, scaled, the scale (4) only on the selected rows;
+    3 float32 operations per selected element (a multiply and an FMA), 4
+    when scaled, and 1 - w once per selected row."""
+    nbytes = 2 * n * d * 4 + k * d * 4 + n + k * (8 if scaled else 4)
+    flops = (4 if scaled else 3) * k * d + k
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def merge_case(gen, n: int, d: int, s_kind: str, w_kind: str):
+    """Merge inputs on the card: ``own``, ``peer`` (NaN and inf in some
+    unselected rows), ``w``, ``scale`` (1 on half the rows) and ``s``."""
+    def rand(*shape):
+        return torch.rand(shape, device="cuda", generator=gen)
+
+    own = torch.randn((n, d), device="cuda", generator=gen)
+    peer = 3 * torch.randn((n, d), device="cuda", generator=gen)
+    s = {"all": torch.ones(n, dtype=torch.bool, device="cuda"),
+         "none": torch.zeros(n, dtype=torch.bool, device="cuda"),
+         "mixed": rand(n) < 0.6}[s_kind]
+    w = {"zero": torch.zeros(n, device="cuda"),
+         "one": torch.ones(n, device="cuda"), "random": rand(n)}[w_kind]
+    scale = torch.where(rand(n) < 0.5, 1.0, 0.01 + 0.99 * rand(n))
+    bad = ~s & (rand(n) < 0.5)
+    peer[bad] = torch.where(rand(int(bad.sum()), 1) < 0.5, float("nan"),
+                            float("inf")).expand(-1, d)
+    return own, peer, w, scale, s
+
+
+def merge_err(got, want) -> float:
+    """Max abs difference of two merge outputs; raises unless they are
+    equal bit for bit."""
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("kernel != plain")
+    diff = torch.where(got == want, 0.0, (got - want).abs())
+    return float(diff.max()) if got.numel() else 0.0
+
+
+def check_merge_pair(args, label: str) -> float:
+    """Both merge kernels (the scaled one in both orders) against their
+    plain versions, bit for bit; returns the largest abs difference."""
+    own, peer, w, scale, s = args
+    worst = 0.0
+    for name, kern, plain, kargs, kw in (
+            ("gossip_merge_rows", gm.gossip_merge_rows,
+             gm.gossip_merge_rows_ref, (own, peer, w, s), {}),
+            ("gossip_merge_rows_scaled", gm.gossip_merge_rows_scaled,
+             gm.gossip_merge_rows_scaled_ref, (own, peer, w, scale, s), {}),
+            ("gossip_merge_rows_scaled fold", gm.gossip_merge_rows_scaled,
+             gm.gossip_merge_rows_scaled_ref, (own, peer, w, scale, s),
+             dict(fold=True))):
+        got, want = kern(*kargs, **kw), plain(*kargs, **kw)
+        torch.cuda.synchronize()
+        try:
+            worst = max(worst, merge_err(got, want))
+        except AssertionError:
+            raise AssertionError(f"{name} != plain at {label}") from None
+        if not torch.equal(got[~s].view(torch.int32),
+                           own[~s].view(torch.int32)):
+            raise AssertionError(f"{name}: unselected rows changed at {label}")
+    return worst
+
+
+def check_merge_cases() -> float:
+    gen = torch.Generator("cuda").manual_seed(13)
+    count, worst = 0, 0.0
+    for n in (1, 7, 200, 4097):
+        for d in (1, 34, 306, 1000):
+            for s_kind in ("all", "none", "mixed"):
+                for w_kind in ("zero", "one", "random"):
+                    args = merge_case(gen, n, d, s_kind, w_kind)
+                    worst = max(worst, check_merge_pair(
+                        args, f"N={n} D={d} s={s_kind} w={w_kind}"))
+                    count += 1
+    phase("merge-kernel", f"{count} cases x 2 kernels (the scaled one with "
+                          f"and without fold) bit for bit (N up to 4097, D "
+                          f"up to 1000, NaN/inf in unselected peer rows, "
+                          f"scale 1 and < 1); max_abs_err={worst}")
+    return worst
+
+
+class MergeRecorder:
+    """Wraps a merge wrapper on the learning layer's path and keeps the
+    inputs of its last ``keep`` calls (the run's own merge inputs); the
+    wrapped kernel still launches and counts."""
+
+    def __init__(self, name: str, keep: int = 64):
+        self.name, self.keep, self.calls = name, keep, []
+        self.fn = getattr(learning, name)
+
+    def __call__(self, *args, **kw):
+        self.calls = (self.calls + [(args, kw)])[-self.keep:]
+        return self.fn(*args, **kw)
+
+    def __enter__(self):
+        setattr(learning, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(learning, self.name, self.fn)
+
+
+def time_merge(kern, plain, library, args, kw) -> dict:
+    """Device times (CUDA graph) of the kernel, its plain version and the
+    nearest library composition on one set of merge inputs."""
+    return dict(ms=device_ms(lambda: kern(*args, **kw)),
+                plain_ms=device_ms(lambda: plain(*args, **kw)),
+                library_ms=device_ms(lambda: library(*args)),
+                call_ms=call_ms(lambda: kern(*args, **kw)))
+
+
+def lerp_rows(own, peer, w, s):
+    """The nearest PyTorch composition: ``where(s, lerp(peer, own, w), own)``
+    (two calls; no one library call merges rows under a mask)."""
+    return torch.where(s[:, None], torch.lerp(peer, own, w[:, None]), own)
+
+
+def lerp_rows_scaled(own, peer, w, scale, s):
+    return torch.where(s[:, None],
+                       torch.lerp(scale[:, None] * peer, own, w[:, None]), own)
+
+
+def held_on_run_inputs(rec: MergeRecorder, kern, plain, library,
+                       bound_fn) -> dict:
+    """The kernel against its plain version on every recorded call of a
+    run, bit for bit; then the kernel, its plain version and the library
+    composition timed on the busiest call (B = 1 -> (N, ...)), beside the
+    bound for that call's selected rows."""
+    rows, worst = 0, 0.0
+    for args, kw in rec.calls:
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        try:
+            worst = max(worst, merge_err(got, want))
+        except AssertionError:
+            raise AssertionError(
+                f"{rec.name} != plain on the run's inputs") from None
+        rows += int(args[-1].sum())
+    if rows == 0:
+        raise AssertionError(f"{rec.name}: the recorded calls merged no row")
+    args, kw = max(rec.calls, key=lambda c: int(c[0][-1].sum()))
+    flat = tuple(a[0].contiguous() for a in args)
+    n, d = flat[0].shape
+    k = int(flat[-1].sum())
+    bound_ms, bound_by = bound_fn(n, d, k)
+    return dict(calls=len(rec.calls), rows=rows, n=n, k=k, max_abs_err=worst,
+                bound_ms=bound_ms, bound_by=bound_by,
+                **time_merge(kern, plain, library, flat, kw))
+
+
+def reset_counts() -> None:
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def close(a, b, rtol: float, atol: float) -> float:
+    """Max abs difference; raises if ``a`` and ``b`` differ beyond
+    ``atol + rtol * |b|`` or in shape."""
+    if a.shape != b.shape or not np.all(np.isfinite(a)):
+        raise AssertionError(f"shape {a.shape} vs {b.shape} or non-finite")
+    if not np.all(np.abs(a - b) <= atol + rtol * np.abs(b)):
+        raise AssertionError(f"beyond rtol={rtol} atol={atol}")
+    return float(np.abs(a.astype(np.float64) - b).max())
+
+
+def learn_replay(lc, n_slots: int, seed: int = 0) -> None:
+    p = paper_params(**LEARN_PARAMS)
+    cfg = SimConfig(n_slots=n_slots, learn=lc)
+    task = learning.make_task(cfg.learn, "cpu")
+    t = time.perf_counter()
+    cpu = simulate(p, cfg, seed=seed, device="cpu", task=task)
+    track = mobility_track(cfg, seed=seed, device="cpu")
+    t_cpu = time.perf_counter() - t
+    replay = dataclasses.replace(cfg, mobility="replay")
+    reset_counts()
+    t = time.perf_counter()
+    gpu = simulate(p, replay, seed=seed, device="cuda", positions=track,
+                   task=task)
+    t_gpu = time.perf_counter() - t
+    launches = counts()
+    if launches != {"pairwise_contacts": n_slots, "gossip_merge_rows": n_slots,
+                    "gossip_merge_rows_scaled": 0}:
+        raise AssertionError(f"learn-replay launches {launches}")
+    off = simulate(p, dataclasses.replace(replay, learn=None), seed=seed,
+                   device="cuda", positions=track)
+    same_traces(cpu, gpu, "learning run on the card != on the CPU",
+                TRACES + ("merge_stats",))
+    same_traces(gpu, off, "learning run != learn=None run")
+    errs = {k: close(getattr(gpu, k), getattr(cpu, k), *LEARN_TOL[k])
+            for k in LEARN_TOL}
+    phase("learn-replay", (
+        f"{lc.model} D={lc.param_dim} N=200 {n_slots} slots: protocol traces and merge_stats bit for "
+        f"bit (card vs CPU, learning vs learn=None); learning traces "
+        f"max abs diff {errs} within (rtol, atol) {LEARN_TOL}; "
+        f"launches={launches}; cpu {t_cpu:.1f}s, gpu {t_gpu:.1f}s"))
+
+
+def learn_run(seed: int = 0) -> dict:
+    """The learning point at full size, free on the card: the merge
+    kernel's main path."""
+    p = paper_params(**LEARN_PARAMS)
+    cfg = SimConfig(learn=logreg_task())
+    with MergeRecorder("gossip_merge_rows") as rec:
+        reset_counts()
+        t = time.perf_counter()
+        out = simulate(p, cfg, seed=seed)             # default device: cuda
+        wall = time.perf_counter() - t
+        launches = counts()
+    if launches != {"pairwise_contacts": cfg.n_slots,
+                    "gossip_merge_rows": cfg.n_slots,
+                    "gossip_merge_rows_scaled": 0}:
+        raise AssertionError(f"learn-run launches {launches}")
+    s = cfg.n_slots // cfg.sample_every
+    for k in ("test_acc", "test_acc_holders", "learn_obs", "theta_var"):
+        arr = getattr(out, k)
+        if arr.shape != (s,) or not np.all(np.isfinite(arr)):
+            raise AssertionError(f"learn-run: {k} {arr.shape} not finite")
+    early, late = float(out.test_acc[:3].mean()), float(out.test_acc[-3:].mean())
+    holders = float(out.test_acc_holders[-3:].mean())
+    if not late > early + 0.05:
+        raise AssertionError(f"learn-run: accuracy {early} -> {late}")
+    if not holders >= late - 1e-6:
+        raise AssertionError(f"learn-run: holders {holders} < {late}")
+    merged = held_on_run_inputs(
+        rec, gm.gossip_merge_rows, gm.gossip_merge_rows_ref, lerp_rows,
+        lambda n, d, sel: merge_bound_ms(n, d, sel, scaled=False))
+    d = cfg.learn.param_dim
+    ms = out.merge_stats[-1]
+    phase("learn-run", (
+        f"N={cfg.n_nodes} D={d} slots={cfg.n_slots} wall={wall:.3f}s "
+        f"slots/s={cfg.n_slots / wall:.1f} launches={launches} "
+        f"test_acc {early:.6f} -> {late:.6f} holders {holders:.6f} "
+        f"learn_obs={float(out.learn_obs[-1]):.3f} "
+        f"theta_var={float(out.theta_var[-1]):.6g} merge_stats={ms.tolist()} "
+        f"{merge_line(merged)}"))
+    profile_slots("learn", p, cfg)
+    return dict(launches=launches["gossip_merge_rows"], **merged)
+
+
+def merge_line(k: dict) -> str:
+    return (f"kernel==plain on the run's last {k['calls']} merges "
+            f"({k['rows']} rows, max_abs_err={k['max_abs_err']}); timed on "
+            f"the busiest ({k['k']} of {k['n']} rows selected): "
+            f"kernel_us={1e3 * k['ms']:.3f} "
+            f"bound_us={1e3 * k['bound_ms']:.5f} ({k['bound_by']}) "
+            f"plain_us={1e3 * k['plain_ms']:.3f} "
+            f"library_us={1e3 * k['library_ms']:.3f} "
+            f"kernel_call_us={1e3 * k['call_ms']:.3f}")
+
+
+def defended_run(seed: int = 0, n_slots: int = 1000) -> dict:
+    """A norm-clipped learning run on the card: the scaled merge's path."""
+    p = paper_params(**LEARN_PARAMS)
+    lc = dataclasses.replace(logreg_task(),
+                             defense=DefenseConfig(norm_clip=0.5))
+    cfg = SimConfig(n_slots=n_slots, learn=lc)
+    with MergeRecorder("gossip_merge_rows_scaled") as rec:
+        reset_counts()
+        t = time.perf_counter()
+        out = simulate(p, cfg, seed=seed)
+        wall = time.perf_counter() - t
+        launches = counts()
+    if launches != {"pairwise_contacts": n_slots, "gossip_merge_rows": 0,
+                    "gossip_merge_rows_scaled": n_slots}:
+        raise AssertionError(f"defended run launches {launches}")
+    ms = out.merge_stats[-1]
+    if ms[learning.MS_NORMCLIP] <= 0 or not np.all(np.isfinite(out.test_acc)):
+        raise AssertionError(f"defended run: merge_stats {ms.tolist()}")
+    merged = held_on_run_inputs(
+        rec, gm.gossip_merge_rows_scaled, gm.gossip_merge_rows_scaled_ref,
+        lerp_rows_scaled,
+        lambda n, d, sel: merge_bound_ms(n, d, sel, scaled=True))
+    phase("defended-run", (
+        f"norm_clip=0.5 N={cfg.n_nodes} slots={n_slots} wall={wall:.3f}s "
+        f"slots/s={n_slots / wall:.1f} launches={launches} "
+        f"merge_stats={ms.tolist()} test_acc {float(out.test_acc[0]):.6f} -> "
+        f"{float(out.test_acc[-1]):.6f} {merge_line(merged)}"))
+    return dict(launches=launches["gossip_merge_rows_scaled"], **merged)
+
+
+def build_all() -> None:
+    """One nvcc per kernel source, all started together."""
+    t = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = list(pool.map(lambda build: build(),
+                             (kc.build_library, gm.build_library)))
+    phase("build", f"{', '.join(lib.name for lib in libs)} in "
+                   f"{time.perf_counter() - t:.2f}s")
+
+
 def scaled_point(n_total: int, n_slots: int):
     """The paper scenario at ``n_total`` nodes and fixed density (the
     dense points of the convergence figure)."""
@@ -339,14 +670,25 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"need an sm_90 card, got sm_{cap[0]}{cap[1]}")
 
-    t = time.perf_counter()
-    lib = kc.build_library()
-    phase("build", f"{lib.name} in {time.perf_counter() - t:.2f}s")
-
+    build_all()
     err = check_kernel_cases()
+    merge_worst = check_merge_cases()
     check_replay()
+    learn_replay(logreg_task(), 1000)
+    learn_replay(mlp_task(), 320)
     main_run = free_run("paper", paper_params(lam=0.05, M=1), SimConfig())
-    dense_run = free_run("dense-800", *scaled_point(800, 8000))
+    dense_run = free_run("dense-800", *scaled_point(800, 4000))
+    rows = learn_run()
+    scaled = defended_run()
+
+    def merge_record(name, run, line):
+        return dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/gossip_merge.cu",
+            replaces=f"src/repro/kernels/gossip_merge.py:{line}",
+            launches=run["launches"], max_abs_err=max(merge_worst,
+                                                      run["max_abs_err"]),
+            ms=run["ms"], plain_ms=run["plain_ms"], bound_ms=run["bound_ms"],
+            bound_by=run["bound_by"], library_ms=run["library_ms"])
 
     record = {"kernels": [dict(
         name="pairwise_contacts", route="cuda",
@@ -358,7 +700,8 @@ def main() -> int:
         ms=main_run["ms"], plain_ms=main_run["plain_ms"],
         bound_ms=main_run["bound_ms"], bound_by=main_run["bound_by"],
         library_ms=None,
-    )]}
+    ), merge_record("gossip_merge_rows", rows, 116),
+        merge_record("gossip_merge_rows_scaled", scaled, 173)]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

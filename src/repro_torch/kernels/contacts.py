@@ -35,14 +35,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.numerics import fma32
 
 __all__ = [
@@ -51,10 +48,8 @@ __all__ = [
     "SOURCE", "BUILD_DIR",
 ]
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "contacts.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.CSRC / "contacts.cu"
+BUILD_DIR = _build.BUILD_DIR
 
 
 def zone_words(member: torch.Tensor) -> torch.Tensor:
@@ -115,29 +110,10 @@ def pairwise_contacts_ref(x, y, zw, elig, prevw, r_tx2):
     return closew, best, has
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernel needs the CUDA toolkit")
-
-
 def build_library() -> Path:
     """Compile ``csrc/contacts.cu`` for sm_90a unless a build of this exact
     source exists; returns the shared library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"contacts-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    return _build.build_library(SOURCE, "contacts")
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,10 +140,7 @@ def _check_inputs(x, y, zw, elig, prevw):
                              f"{tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if torch.cuda.get_device_capability(x.device) != (9, 0):
-        raise RuntimeError(
-            "the pairwise_contacts kernel is built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(x.device)} is not sm_90")
+    _build.check_hopper(x.device, "pairwise_contacts")
     return b, n, nw
 
 

@@ -1,0 +1,156 @@
+"""Row-wise gossip merges: hand-written CUDA kernels for Hopper and their
+plain PyTorch versions.
+
+Replace the TPU Pallas kernels ``repro/kernels/gossip_merge.py::
+gossip_merge_rows`` (body ``_rows_kernel``) and ``gossip_merge_rows_scaled``
+(body ``_rows_scaled_kernel``). Over ``own`` and ``peer`` ``(..., D)``
+float32 with per-row ``w`` (float32), ``s`` (bool) and, scaled, ``scale``
+(float32), all ``(...)``:
+
+* ``gossip_merge_rows``:        ``s ? w*own + (1-w)*peer : own``;
+* ``gossip_merge_rows_scaled``: ``s ? w*own + (1-w)*(scale*peer) : own``.
+
+Each is one multiply-add in the operand order that ``repro``'s jitted
+simulator contracts the merge into: ``fma(1-w, peer, w*own)``, and for the
+scaled merge the same with the rounded ``scale*peer`` as the peer (the other
+order rounds differently on about a third of the inputs). XLA's choice
+depends on what it fuses the merge with: the scaled reference jitted on its
+own contracts ``fma(w, own, (1-w)*(scale*peer))`` instead, and with the
+uniform policy's constant ``w = 0.5`` the simulator folds the weight into
+the scale, ``fma((1-w)*scale, peer, w*own)``; the scaled merge takes that
+order with ``fold=True``. The kernels write ``__fmaf_rn`` in these orders;
+the plain versions emulate the FMA in float64
+(:func:`repro_torch.numerics.fma32`).
+
+Dispatch: a CPU tensor gets the plain version; a CUDA tensor gets the
+kernel (source ``csrc/gossip_merge.cu``, built by nvcc for ``sm_90a`` on
+first use into ``build/repro_torch/`` and loaded with ``ctypes``) or an
+error. Nothing falls back.
+
+Bound on the H100: bytes. ``own`` is read and the output written in
+full, ``s`` read on every row; ``peer``, ``w`` and ``scale`` are needed only
+on the k selected rows: ``8·R·D + 4·k·D + R + 4·k`` bytes (``+ 4·k``
+scaled). At the simulator's R = 200 rows of D = 34 that is at most some
+25 ns at 3.35 TB/s, so a launch costs more than the work; the kernel moves
+each of these bytes once and nothing more.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.numerics import fma32
+
+__all__ = ["gossip_merge_rows", "gossip_merge_rows_scaled",
+           "gossip_merge_rows_ref", "gossip_merge_rows_scaled_ref",
+           "build_library", "SOURCE"]
+
+SOURCE = _build.CSRC / "gossip_merge.cu"
+
+
+def gossip_merge_rows_ref(own, peer, w, s):
+    """Plain version: ``where(s, fma(1-w, peer, w*own), own)`` per row."""
+    w = w[..., None]
+    merged = fma32(1.0 - w, peer, w * own)
+    return torch.where(s[..., None], merged, own)
+
+
+def gossip_merge_rows_scaled_ref(own, peer, w, scale, s, fold=False):
+    """Plain version: ``where(s, fma(1-w, scale*peer, w*own), own)``, or
+    with ``fold`` ``where(s, fma((1-w)*scale, peer, w*own), own)``."""
+    if not fold:
+        return gossip_merge_rows_ref(own, scale[..., None] * peer, w, s)
+    w, scale = w[..., None], scale[..., None]
+    merged = fma32((1.0 - w) * scale, peer, w * own)
+    return torch.where(s[..., None], merged, own)
+
+
+def build_library():
+    """Compile ``csrc/gossip_merge.cu`` for sm_90a unless a build of this
+    exact source exists; returns the shared library's path."""
+    return _build.build_library(SOURCE, "gossip_merge")
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(str(build_library()))
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.gossip_merge_rows_launch.argtypes = [ptr] * 5 + [i64, i32, ptr]
+    lib.gossip_merge_rows_scaled_launch.argtypes = [ptr] * 6 + [i64, i32,
+                                                                i32, ptr]
+    lib.gossip_merge_rows_launch.restype = ctypes.c_int
+    lib.gossip_merge_rows_scaled_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, own, peer, rows_f32, s):
+    lead, d = tuple(own.shape[:-1]), own.shape[-1]
+    want = [("own", own, (*lead, d), torch.float32),
+            ("peer", peer, (*lead, d), torch.float32),
+            ("s", s, lead, torch.bool)]
+    want += [(k, t, lead, torch.float32) for k, t in rows_f32]
+    for key, t, shape, dtype in want:
+        if t.device != own.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, own on "
+                             f"{own.device}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: {key} wants {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    _build.check_hopper(own.device, name)
+    return own.numel() // max(d, 1), d
+
+
+def _launch(name: str, own, inputs, rows: int, d: int, *flags) -> torch.Tensor:
+    out = torch.empty_like(own)
+    with torch.cuda.device(own.device):
+        err = getattr(_library(), f"{name}_launch")(
+            own.data_ptr(), *(t.data_ptr() for t in inputs),
+            out.data_ptr(), rows, d, *flags,
+            torch.cuda.current_stream(own.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out
+
+
+def gossip_merge_rows(own, peer, w, s):
+    """``s ? w*own + (1-w)*peer : own`` per row: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor. ``own``, ``peer``: ``(...,
+    D)`` float32; ``w`` ``(...)`` float32; ``s`` ``(...)`` bool."""
+    if own.device.type == "cpu":
+        return gossip_merge_rows_ref(own, peer, w, s)
+    if own.device.type != "cuda":
+        raise ValueError(f"gossip_merge_rows: unsupported device {own.device}")
+    rows, d = _check("gossip_merge_rows", own, peer, [("w", w)], s)
+    out = _launch("gossip_merge_rows", own, (peer, w, s), rows, d)
+    gossip_merge_rows.launches += 1
+    return out
+
+
+def gossip_merge_rows_scaled(own, peer, w, scale, s, fold=False):
+    """``s ? w*own + (1-w)*(scale*peer) : own`` per row (the norm-clipped
+    merge): the CUDA kernel on a CUDA tensor, the plain version on a CPU
+    tensor. Shapes as :func:`gossip_merge_rows`, ``scale`` like ``w``.
+    ``fold`` contracts ``(1-w)*scale`` into one factor, the simulator's
+    order under a constant weight (the uniform policy)."""
+    if own.device.type == "cpu":
+        return gossip_merge_rows_scaled_ref(own, peer, w, scale, s, fold)
+    if own.device.type != "cuda":
+        raise ValueError(
+            f"gossip_merge_rows_scaled: unsupported device {own.device}")
+    rows, d = _check("gossip_merge_rows_scaled", own, peer,
+                     [("w", w), ("scale", scale)], s)
+    out = _launch("gossip_merge_rows_scaled", own, (peer, w, scale, s), rows,
+                  d, int(bool(fold)))
+    gossip_merge_rows_scaled.launches += 1
+    return out
+
+
+#: Kernel launches since the last reset (the plain versions never count).
+gossip_merge_rows.launches = 0
+gossip_merge_rows_scaled.launches = 0

@@ -11,7 +11,10 @@ bit for bit:
 * ``fold_in(key, data)`` -> the hash of counter ``(0, data)``;
 * ``bits(key, shape)``   -> the XOR of the two hash words at each counter;
 * ``uniform``            -> ``bits >> 9`` as the mantissa of ``[1, 2)``,
-  minus 1, scaled into ``[minval, maxval)``.
+  minus 1, scaled into ``[minval, maxval)``;
+* ``normal``             -> ``sqrt(2) * erf_inv(u)`` of a uniform ``u`` in
+  ``(-1, 1)``, with XLA's float32 ``erf_inv`` and ``log1p`` written out
+  (:mod:`repro_torch.numerics`).
 
 Keys are int64 tensors holding uint32 values in their trailing axis of 2;
 any leading axes are a batch of keys, and every function maps over them
@@ -27,7 +30,9 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform"]
+from repro_torch.numerics import erfinv32
+
+__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "normal"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -110,3 +115,13 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     span = float(np.float32(np.float32(maxval) - np.float32(lo)))
     out = (f.double() * span + lo).float()
     return torch.clamp(out, min=lo)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with ``u``
+    uniform in ``[nextafter(-1, 0), 1)``."""
+    return _SQRT2 * erfinv32(uniform(key, shape, minval=_NORMAL_LO))

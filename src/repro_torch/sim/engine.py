@@ -13,10 +13,17 @@ An output sample is taken every ``cfg.sample_every`` slots. The loop makes
 no host synchronisation: samples stay on the device and are copied to the
 host once, at the end.
 
-This slice supports the paper's validation loop: ``rdm`` (or ``replay``)
+With ``cfg.learn`` set, the Gossip-Learning layer
+(``repro_torch.sim.learn``) rides the same loop at ``repro``'s four sites:
+replicas reset on zone churn, deliveries merge after the contact sweep,
+parameters are snapshotted when connections form, and finished training
+jobs take an SGD step. It never feeds back into the protocol.
+
+The port runs the paper's validation loop: ``rdm`` (or ``replay``)
 mobility at constant speed, a single static zone, the dense contact
-backend, no faults and no learning, any ``M``. Any other configuration
-raises ``NotImplementedError`` naming the slice that will port it.
+backend, no faults, any ``M``, with or without learning (average or
+trimmed defenses). Any other configuration raises ``NotImplementedError``
+naming the slice that will port it.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from repro_torch.core.zones import ZoneSet, single_zone
 from repro_torch.kernels.contacts import zone_words
 from repro_torch.numerics import fma32
 from repro_torch.sim import compute, contacts, faults, observations
+from repro_torch.sim import learn as learning
 from repro_torch.sim.mobility import get_mobility, replay_model
 from repro_torch.sim.state import init_sim_state
 
@@ -86,6 +94,12 @@ class SimOutputs:
     availability_z: np.ndarray | None = None   # (S, M, K_zones)
     stored_info_z: np.ndarray | None = None    # (S, K_zones)
     n_in_rz_z: np.ndarray | None = None        # (S, K_zones)
+    # learning telemetry (enabled LearnConfig only; repro_torch.sim.learn)
+    test_acc: np.ndarray | None = None         # (S,) population mean accuracy
+    test_acc_holders: np.ndarray | None = None # (S,) mean over in-RZ holders
+    learn_obs: np.ndarray | None = None        # (S,) mean obs count / holder
+    theta_var: np.ndarray | None = None        # (S,) mean parameter variance
+    merge_stats: np.ndarray | None = None      # (S, 6) cumulative counters
 
 
 def effective_zones(cfg: SimConfig) -> ZoneSet:
@@ -135,8 +149,10 @@ def _check_supported(p: FGParams, cfg: SimConfig) -> int:
         raise ValueError(f"unknown contact_backend {cfg.contact_backend!r}")
     elif cfg.faults is not None and getattr(cfg.faults, "enabled", True):
         later = "an enabled fault configuration (the faults slice)"
-    elif cfg.learn is not None:
-        later = "learn (the learning slice with the gossip_merge kernels)"
+    elif cfg.learn is not None and not isinstance(cfg.learn,
+                                                  learning.LearnConfig):
+        raise ValueError("SimConfig.learn must be a repro_torch.sim.learn."
+                         f"LearnConfig (got {type(cfg.learn).__name__})")
     else:
         zs = effective_zones(cfg)
         if zs.k != 1 or zs.moving:
@@ -184,21 +200,35 @@ def _mobility(cfg: SimConfig, positions, device):
     return replay_model(track)
 
 
-def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model) -> dict:
+#: Slots whose learning minibatches are drawn in one vectorized call.
+STREAM_BLOCK = 64
+
+
+def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
     """The slot loop from key ``key`` ``(B, 2)``: the per-sample outputs,
-    stacked on the device (leading axis = sample)."""
+    stacked on the device (leading axis = sample). ``task`` is the learning
+    task of ``cfg.learn`` (drawn from the config when None)."""
     dt = cfg.dt
     t0, T_L, T_T, T_M = (p_dyn[k] for k in ("t0", "T_L", "T_T", "T_M"))
+    tau_l = p_dyn["tau_l"]
     r_tx2 = float(np.float32(cfg.r_tx ** 2))
     zs = effective_zones(cfg)
+    n_run = cfg.n_slots // cfg.sample_every * cfg.sample_every
+
+    lc = cfg.learn
+    if lc is not None:
+        if task is None:
+            task = learning.make_task(lc, key.device)
+        dc = lc.active_defense
+        trimmed_on = dc is not None and dc.mode == "trimmed"
 
     def zone_word(pos):
         return zone_words(_zone_member(pos, zs))
 
     mob, key = model.init(key, cfg)
-    state = init_sim_state(mob, zone_word(mob.pos), M=M, cfg=cfg)
+    state = init_sim_state(mob, zone_word(mob.pos), M=M, cfg=cfg, task=task)
     samples = []
-    for slot in range(cfg.n_slots // cfg.sample_every * cfg.sample_every):
+    for slot in range(n_run):
         t_now = float(np.float32(slot) * np.float32(dt))
         key, k_mob1, k_mob2, k_obs, k_who = jr.split(key, 5).unbind(-2)
 
@@ -206,7 +236,7 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model) -> dict:
         mob = model.step(k_mob1, k_mob2, state.mob, cfg)
         zonew = zone_word(mob.pos)
         in_rz = zonew != 0
-        _, churned = zone_churn(
+        left, churned = zone_churn(
             state.zone_prev, zonew, inc=state.inc, has_model=state.has_model,
             tq_model=state.tq_model, mq_model=state.mq_model,
             serving=state.serving, serv_left=state.serv_left,
@@ -214,6 +244,11 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model) -> dict:
         inc, has_model = churned["inc"], churned["has_model"]
         tq_model, mq_model = churned["tq_model"], churned["mq_model"]
         serving, serv_left = churned["serving"], churned["serv_left"]
+        if lc is not None:
+            # learning churn: the replica goes back to the shared init
+            lrn = learning.reset_replicas(
+                left, state.theta, state.theta_cnt, state.theta_age,
+                task.theta0, peer_fill=state.peer_fill if trimmed_on else None)
 
         # ---- contact sweep: shared matrix on the CPU, fused kernel later
         # on a CUDA device (then the O(N) recompute gives the proximity bit)
@@ -233,6 +268,15 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model) -> dict:
             snap=state.snap, pidx=pidx, eff_time=eff_time, ending=ending,
             t0=t0, T_L=T_L,
         )
+        if lc is not None:
+            # learning merge: the sender's connection-time snapshot
+            lrn.update(learning.merge_deliveries(
+                lc, delivered[..., learning.LEARN_MODEL], pidx, lrn["theta"],
+                lrn["theta_cnt"], lrn["theta_age"], state.theta_snap,
+                state.snap_cnt, state.snap_age, tau_l,
+                merge_stats=state.merge_stats,
+                peer_buf=state.peer_buf if trimmed_on else None,
+                peer_fill=lrn.get("peer_fill")))
         # merge only what adds information (Y of Definition 4)
         adds = delivered & compute.packed_any(sender_words & ~inc)
         mq_model, mq_mask = compute.enqueue_ascending(
@@ -248,6 +292,13 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model) -> dict:
             exch_total=state.exch_total, order_seed=state.order_seed,
             slot_idx=slot, t0=t0, T_L=T_L,
         )
+        if lc is not None:
+            # learning snapshot, beside the protocol's snap words
+            lrn["theta_snap"], lrn["snap_cnt"], lrn["snap_age"] = (
+                learning.snapshot_params(
+                    match >= 0, lrn["theta"], lrn["theta_cnt"],
+                    lrn["theta_age"], state.theta_snap, state.snap_cnt,
+                    state.snap_age))
 
         # ---- observations and the training enqueue ----
         obs_birth, obs_head, inc, want_train, slot_payload = (
@@ -269,6 +320,24 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model) -> dict:
             obs_birth=obs_birth,
         )
         serving = torch.where(fin_merge | fin_train, -1, serving)
+        if lc is not None:
+            # learning step: a finished training job on the learned model
+            # whose observation is still in the ring
+            if slot % STREAM_BLOCK == 0:
+                slots = torch.arange(slot, min(slot + STREAM_BLOCK, n_run),
+                                     device=key.device)
+                stream = learning.stream_batches(lc, task, slots,
+                                                 cfg.n_nodes)
+            born = torch.gather(obs_birth[:, learning.LEARN_MODEL], -1,
+                                state.serv_slot.to(torch.int64))
+            did_train = (fin_train
+                         & (state.serv_model == learning.LEARN_MODEL)
+                         & (born > float("-inf")))
+            lrn["theta"], lrn["theta_cnt"], lrn["theta_age"] = (
+                learning.train_completions(
+                    lc, slot, did_train, lrn["theta"], lrn["theta_cnt"],
+                    lrn["theta_age"], dt,
+                    tuple(t[slot % STREAM_BLOCK] for t in stream)))
         served = compute.pick_next_jobs(
             serving=serving, serv_left=serv_left, serv_model=state.serv_model,
             serv_mask=state.serv_mask, serv_slot=state.serv_slot,
@@ -279,14 +348,21 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model) -> dict:
             mob=mob, prev_close=closew, inc=inc, has_model=has_model,
             obs_birth=obs_birth, obs_head=obs_head, tq_slot=tq_slot,
             mq_mask=mq_mask, zone_prev=zonew, **conn, **served,
+            **(lrn if lc is not None else {}),
         )
         if (slot + 1) % cfg.sample_every == 0:
-            samples.append(observations.slot_outputs(
+            out = observations.slot_outputs(
                 inc=state.inc, has_model=state.has_model,
                 obs_birth=state.obs_birth, in_rz=state.zone_prev != 0,
                 member=compute.unpack_mask(state.zone_prev[..., None], zs.k),
-                partner=state.partner, t_now=t_now, tau_l=p_dyn["tau_l"],
-            ))
+                partner=state.partner, t_now=t_now, tau_l=tau_l,
+            )
+            if lc is not None:
+                out.update(learning.learn_outputs(
+                    lc, task, state.theta, state.theta_cnt,
+                    has_model=state.has_model, in_rz=state.zone_prev != 0,
+                    merge_stats=state.merge_stats))
+            samples.append(out)
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
 
@@ -307,16 +383,22 @@ def mobility_track(cfg: SimConfig, seed: int = 0, device=None) -> np.ndarray:
 
 
 def simulate(p: FGParams, cfg: SimConfig, seed: int = 0, device=None,
-             positions=None) -> SimOutputs:
+             positions=None, task=None) -> SimOutputs:
     """Run the simulator for the FG system ``p``.
 
     ``device`` defaults to ``cuda`` and raises where there is none;
-    ``positions`` ``(n_slots + 1, N, 2)`` feed ``mobility="replay"``."""
+    ``positions`` ``(n_slots + 1, N, 2)`` feed ``mobility="replay"``;
+    ``task`` (a ``repro_torch.sim.learn.LearnTask``, e.g. from
+    ``task_from_numpy``) replaces the one drawn from ``cfg.learn``."""
     M = _check_supported(p, cfg)
     device = _resolve_device(device)
     model = _mobility(cfg, positions, device)
     key = jr.PRNGKey(seed, device=device)[None]
-    outs = _run(key, dynamic_params(p), cfg, M, model)
+    if task is not None:
+        task = dataclasses.replace(
+            task, **{f.name: getattr(task, f.name).to(device)
+                     for f in dataclasses.fields(task)})
+    outs = _run(key, dynamic_params(p), cfg, M, model, task)
     host = {k: v[:, 0].cpu().numpy() for k, v in outs.items()}
     s = cfg.sample_every
     return SimOutputs(
@@ -331,4 +413,6 @@ def simulate(p: FGParams, cfg: SimConfig, seed: int = 0, device=None,
         availability_z=host["availability_z"],
         stored_info_z=host["stored_z"],
         n_in_rz_z=host["n_in_rz_z"],
+        **{k: host.get(k) for k in ("test_acc", "test_acc_holders",
+                                    "learn_obs", "theta_var", "merge_stats")},
     )

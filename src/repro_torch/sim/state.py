@@ -63,16 +63,30 @@ class SimState:
     serv_slot: torch.Tensor      # (B, N) train payload being served
     zone_prev: torch.Tensor      # (B, N) zone-membership word last slot
     nbr_overflow: torch.Tensor   # (B,) int32, always 0 on the dense backend
+    # --- learning carry (None unless cfg.learn is enabled; see
+    # repro_torch.sim.learn — D = flat parameter dim of the learned model) ---
+    theta: Any = None            # (B, N, D) live replica parameters
+    theta_cnt: Any = None        # (B, N) observations incorporated
+    theta_age: Any = None        # (B, N) time since last fresh local step
+    theta_snap: Any = None       # (B, N, D) parameters at connection
+    snap_cnt: Any = None         # (B, N) count at connection
+    snap_age: Any = None         # (B, N) age at connection
+    merge_stats: Any = None      # (B, 6) int32 cumulative merge counters
+    peer_buf: Any = None         # (B, N, R, D) trimmed mode: recent peers
+    peer_fill: Any = None        # (B, N) int32 trimmed mode: peers accepted
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)
 
 
-def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg) -> SimState:
+def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg,
+                   task=None) -> SimState:
     """Empty protocol state around an initialized mobility state.
 
     ``zone0`` is the ``(B, N)`` int32 initial zone word; the state lives on
-    its device."""
+    its device. A ``cfg.learn`` adds the learning carry, from
+    ``task`` (a ``repro_torch.sim.learn.LearnTask``; drawn from the config
+    when None)."""
     b, n = zone0.shape
     k, qt, qm = cfg.k_obs, cfg.q_train, cfg.q_merge
     kw, nw = (k + 31) // 32, (n + 31) // 32
@@ -106,7 +120,18 @@ def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg) -> SimState:
         serv_slot=full((b, n), 0, torch.int32),
         zone_prev=zone0,
         nbr_overflow=full((b,), 0, torch.int32),
+        **_learn_fields(cfg, task, b, n, dev),
     )
+
+
+def _learn_fields(cfg, task, b: int, n: int, device) -> dict:
+    if cfg.learn is None:
+        return {}
+    from repro_torch.sim import learn
+
+    if task is None:
+        task = learn.make_task(cfg.learn, device)
+    return learn.init_fields(cfg.learn, task, b, n)
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -119,11 +144,12 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
 def state_from_numpy(fields: dict, device) -> SimState:
     """The port's ``SimState`` (``B = 1``) from one ``repro`` run's state.
 
-    ``fields`` maps every ``repro`` ``SimState`` field to a numpy array,
-    except ``mob``, which maps the rdm state's fields (``pos``, ``ang``,
-    ``spd``) to arrays; uint32 words become int32 bits."""
+    ``fields`` maps every ``repro`` ``SimState`` field that is not None to
+    a numpy array, except ``mob``, which maps the rdm state's fields
+    (``pos``, ``ang``, ``spd``) to arrays; uint32 words become int32 bits."""
     kw = {f.name: _to_torch(fields[f.name], device)
-          for f in dataclasses.fields(SimState) if f.name != "mob"}
+          for f in dataclasses.fields(SimState)
+          if f.name != "mob" and f.name in fields}
     kw["nbr_overflow"] = kw["nbr_overflow"].reshape(1)
     mob = RDMState(**{k: _to_torch(v, device)
                       for k, v in fields["mob"].items()})
@@ -138,7 +164,8 @@ def state_to_numpy(state: SimState, item: int = 0) -> dict:
         return a.view(np.uint32) if name in WORD_FIELDS else a
 
     out = {f.name: conv(f.name, getattr(state, f.name))
-           for f in dataclasses.fields(SimState) if f.name != "mob"}
+           for f in dataclasses.fields(SimState)
+           if f.name != "mob" and getattr(state, f.name) is not None}
     out["mob"] = {f.name: getattr(state.mob, f.name)[item].cpu().numpy()
                   for f in dataclasses.fields(state.mob)}
     return out

@@ -25,7 +25,12 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_or_repro():
     modules = _port_modules()
-    assert "repro_torch.sim.engine" in modules
+    for name in ("repro_torch.sim.engine", "repro_torch.sim.learn",
+                 "repro_torch.core.merge", "repro_torch.models.tiny",
+                 "repro_torch.optim.optimizers",
+                 "repro_torch.kernels.gossip_merge",
+                 "repro_torch.configs.fg_learn"):
+        assert name in modules, name
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",

@@ -1,6 +1,6 @@
 """``repro_torch.random`` reproduces jitted ``jax.random`` bit for bit
-(threefry2x32, partitionable mode): keys, splits, fold-ins, raw bits and
-float32 uniforms over odd and multi-dimensional shapes."""
+(threefry2x32, partitionable mode): keys, splits, fold-ins, raw bits,
+float32 uniforms and normals over odd and multi-dimensional shapes."""
 
 import math
 
@@ -96,3 +96,53 @@ def test_batched_keys_match_vmap():
                                   tr.uniform(keys_t, (5, 3)).numpy())
     want = jax.jit(jax.vmap(lambda k: jax.random.split(k, 5)))(keys)
     np.testing.assert_array_equal(np.asarray(want), _u32(tr.split(keys_t, 5)))
+
+
+@pytest.mark.parametrize("shape", [(), (7,), (200, 8, 16), (3, 5, 7),
+                                   (300_000,)])
+@pytest.mark.parametrize("seed", [0, 11, 2**31 - 1])
+def test_normal(seed, shape):
+    """``normal`` = ``sqrt(2) * erf_inv(u)`` with XLA's float32 ``erf_inv``
+    and ``log1p`` written out: bit for bit, also in the far tails."""
+    k, kt = _key(seed)
+    want = np.asarray(jax.jit(lambda k: jax.random.normal(k, shape))(k))
+    got = tr.normal(kt, shape).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(want.view(np.uint32), got.view(np.uint32))
+
+
+def test_normal_batched_keys_match_vmap():
+    keys = jax.random.split(jax.random.PRNGKey(9), 6)
+    keys_t = torch.from_numpy(np.asarray(keys).astype(np.int64))
+    want = jax.jit(jax.vmap(lambda k: jax.random.normal(k, (40, 3))))(keys)
+    np.testing.assert_array_equal(np.asarray(want).view(np.uint32),
+                                  tr.normal(keys_t, (40, 3)).numpy()
+                                  .view(np.uint32))
+
+
+def _grid():
+    rng = np.random.default_rng(0)
+    u = rng.uniform(-1, 1, 400_000).astype(np.float32)
+    edge = np.nextafter(np.float32(1), np.float32(0)) - np.arange(
+        2000, dtype=np.float32) * np.float32(2**-24)
+    return np.concatenate([u, edge, -edge, np.float32([0.0, -0.0])])
+
+
+def test_log1p32_and_erfinv32_equal_jitted_xla():
+    from repro_torch.numerics import erfinv32, log1p32
+
+    u = _grid()
+    arg = -(u * u)
+    wide = np.random.default_rng(1).uniform(-0.999, 60, 200_000).astype(
+        np.float32)
+    for x in (arg, wide):
+        want = np.asarray(jax.jit(jax.numpy.log1p)(x))
+        got = log1p32(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(want.view(np.uint32),
+                                      got.view(np.uint32))
+    want = np.asarray(jax.jit(jax.lax.erf_inv)(u))
+    got = erfinv32(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(want.view(np.uint32), got.view(np.uint32))
+    # torch's own erfinv is another approximation: it would not do
+    own = torch.erfinv(torch.from_numpy(u)).numpy()
+    assert np.mean(own.view(np.uint32) == want.view(np.uint32)) < 0.6
