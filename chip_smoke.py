@@ -27,11 +27,29 @@ Phases (any failure ends the run with a non-zero exit code):
    sanity checks; then the contact kernel is held against its plain
    version bit for bit on that point's own inputs (B = 1) and both are
    timed, beside the kernel's bound;
-8. learn-run — the learning point at full size (N = 200, 8000 slots,
-   logreg) free on the card: accuracy must rise, holders must be no worse
+8. learn-run — the learning point at full width (N = 200, logreg; 8000
+   slots) free on the card: accuracy must rise, holders must be no worse
    than the population; the merge kernel is held against its plain
    version on the run's own merge inputs and timed; then a defended run
-   (norm clip) does the same for ``gossip_merge_rows_scaled``.
+   (norm clip) does the same for ``gossip_merge_rows_scaled``;
+9. cell-kernel — ``cell_close_words`` vs its plain version, bit for bit,
+   over cap in {1, 4, 9, 32, 40} x ncx in {1, 3, 17, 319} x B in {1, 2},
+   empty and full cells, multi-bit zone words, pairs an ulp either side
+   of r_tx; and ``neighbor_lists`` at B = 2 on the card equal to each
+   item's CPU run;
+10. cells-replay — N = 1024 at the paper's density on the cells backend
+    (500 slots, of which whole samples of 16 run: 496): the CPU run, then
+    the card replaying its positions, every trace and ``nbr_overflow``
+    equal bit for bit, one cell-kernel launch per slot;
+11. cells-vs-dense — the N = 800 point (500 slots) on the card with
+    ``contact_backend="cells"`` and ``"dense"``: every trace bit for bit;
+12. cells-run — the convergence figure's N = 12800 point (2000 slots,
+    ``auto`` = cells) free on the card: no overflow, population and
+    availability sane, the kernel held against its plain version on the
+    last slot's planes and timed beside its bound; then a 32-slot profile.
+
+Phases 9-12 run beside the older ones: 9 after 4, 10 after 5, 11 and 12
+after 7.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +78,7 @@ from repro_torch.configs.fg_learn import logreg_task, mlp_task  # noqa: E402
 from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
 from repro_torch.kernels import gossip_merge as gm  # noqa: E402
+from repro_torch.sim import cells as sim_cells  # noqa: E402
 from repro_torch.sim import learn as learning  # noqa: E402
 from repro_torch.sim.compute import pack_mask  # noqa: E402
 from repro_torch.sim.engine import (SimConfig, _zone_member,  # noqa: E402
@@ -81,7 +100,12 @@ LEARN_PARAMS = dict(lam=0.05, Lam=10.0, M=1, T_T=5.0)
 LEARN_TOL = dict(test_acc=(0.0, 2e-3), test_acc_holders=(0.0, 2e-3),
                  learn_obs=(1e-5, 0.0), theta_var=(1e-3, 1e-7))
 KERNELS = (kc.pairwise_contacts, gm.gossip_merge_rows,
-           gm.gossip_merge_rows_scaled)
+           gm.gossip_merge_rows_scaled, kc.cell_close_words)
+#: Kernel launch counts of a dense run without learning, per slot.
+DENSE_ONLY = dict(pairwise_contacts=1, gossip_merge_rows=0,
+                  gossip_merge_rows_scaled=0, cell_close_words=0)
+#: ... and of a cells run without learning.
+CELLS_ONLY = dict(DENSE_ONLY, pairwise_contacts=0, cell_close_words=1)
 
 
 _START = time.perf_counter()
@@ -91,6 +115,14 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name} +{time.perf_counter() - _START:.0f}s] {msg}", flush=True)
 
 
+def roofline_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time of a call that moves ``nbytes`` and does ``flops``
+    float32 operations: the larger of the two at the card's peaks, and
+    which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_bound_ms(b: int, n: int) -> tuple[float, str]:
     """Least time for one sweep: every input read once (x, y, zone word,
     elig, prevw), every output written once (closew, best_j, has), and 5
@@ -98,8 +130,7 @@ def kernel_bound_ms(b: int, n: int) -> tuple[float, str]:
     nw = (n + 31) // 32
     nbytes = b * n * (4 + 4 + 4 + 1) + 2 * b * n * nw * 4 + b * n * (4 + 1)
     flops = 5 * b * n * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return roofline_ms(nbytes, flops)
 
 
 def _events_ms(run, count: int) -> float:
@@ -237,7 +268,7 @@ def time_kernel(cfg: SimConfig, seed: int) -> dict:
                 f"kernel != plain on {name} at the main path's inputs, "
                 f"N={cfg.n_nodes}")
     bound_ms, bound_by = kernel_bound_ms(1, cfg.n_nodes)
-    return dict(max_abs_err=max_abs_err(got, want),
+    return dict(on="the path's inputs", max_abs_err=max_abs_err(got, want),
                 ms=device_ms(kernel), plain_ms=device_ms(plain),
                 call_ms=call_ms(kernel), plain_call_ms=call_ms(plain),
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -265,49 +296,56 @@ def check_replay(seed: int = 0, n_slots: int = 1000) -> None:
     t_gpu = time.perf_counter() - t
     launches = kc.pairwise_contacts.launches
     same_traces(cpu, gpu)
-    if launches != n_slots:
-        raise AssertionError(f"{launches} kernel launches for {n_slots} slots")
+    if counts() != per_run(DENSE_ONLY, n_slots):
+        raise AssertionError(f"launches {counts()} for {n_slots} slots")
     phase("replay", f"N=200 {n_slots} slots: every trace bit for bit; "
                     f"launches={launches}; cpu {t_cpu:.1f}s, gpu {t_gpu:.1f}s")
 
 
-def free_run(label: str, p, cfg: SimConfig, seed: int = 0) -> dict:
+def free_run(label: str, p, cfg: SimConfig, seed: int = 0,
+             per_slot: dict = DENSE_ONLY, timed=None, tag: str = "run") -> dict:
+    """A free run on the card: launches as ``per_slot`` says, finite traces
+    of the expected shape, no neighbour-list overflow, population and
+    availability sane. Then ``timed()`` holds the path's kernel against its
+    plain version and times it (by default the contact kernel on the main
+    path's own inputs), and a short profile follows."""
     reset_counts()
     t = time.perf_counter()
     out = simulate(p, cfg, seed=seed)                 # default device: cuda
     wall = time.perf_counter() - t
-    launches = kc.pairwise_contacts.launches
-    if counts()["gossip_merge_rows"] or counts()["gossip_merge_rows_scaled"]:
-        raise AssertionError(f"{label}: merge kernels ran without learning")
+    launches = counts()
+    if launches != per_run(per_slot, slots_run(cfg)):
+        raise AssertionError(f"{label}: launches {launches}")
     s0 = int(len(out.t) * cfg.warmup_frac)
     n_rz = float(out.n_in_rz[s0:].mean())
     avail = float(out.availability[s0:].mean())
-    for name, arr in (("availability", out.availability),
-                      ("stored_info", out.stored_info)):
-        if not np.all(np.isfinite(arr)):
+    for name in ("availability", "stored_info", "busy_frac"):
+        if not np.all(np.isfinite(getattr(out, name))):
             raise AssertionError(f"{label}: non-finite {name}")
     if out.availability.shape != (cfg.n_slots // cfg.sample_every, p.M):
         raise AssertionError(f"{label}: availability {out.availability.shape}")
-    if launches != cfg.n_slots:
-        raise AssertionError(f"{label}: {launches} launches, {cfg.n_slots} slots")
+    if out.nbr_overflow is not None and int(out.nbr_overflow.max()) != 0:
+        raise AssertionError(f"{label}: nbr_overflow {out.nbr_overflow.max()}")
     if abs(n_rz - p.N) / p.N >= 0.05:
         raise AssertionError(f"{label}: mean n_in_rz {n_rz} vs N {p.N}")
     if not 0.0 < avail <= 1.0:
         raise AssertionError(f"{label}: mean availability {avail}")
-    k = time_kernel(cfg, seed)
-    phase("run", (
+    k = timed() if timed else time_kernel(cfg, seed)
+    plain_call = (f"plain_call_us={1e3 * k['plain_call_ms']:.3f} "
+                  if "plain_call_ms" in k else "")
+    phase(tag, (
         f"{label}: N={cfg.n_nodes} slots={cfg.n_slots} wall={wall:.3f}s "
         f"slots/s={cfg.n_slots / wall:.1f} launches={launches} "
-        f"kernel==plain on the path's inputs (max_abs_err={k['max_abs_err']}) "
+        f"kernel==plain on {k['on']} (max_abs_err={k['max_abs_err']}) "
         f"kernel_us={1e3 * k['ms']:.3f} bound_us={1e3 * k['bound_ms']:.5f} "
         f"({k['bound_by']}) plain_us={1e3 * k['plain_ms']:.3f} "
-        f"kernel_call_us={1e3 * k['call_ms']:.3f} "
-        f"plain_call_us={1e3 * k['plain_call_ms']:.3f} "
+        f"kernel_call_us={1e3 * k['call_ms']:.3f} {plain_call}"
         f"mean availability={avail:.6f} busy={float(out.busy_frac[s0:].mean()):.6f} "
         f"stored_info={float(out.stored_info[s0:].mean()):.6f} "
         f"n_in_rz={n_rz:.3f} (N={p.N:.3f})"))
     profile_slots(label, p, cfg)
-    return dict(launches=launches, **k)
+    name, = (n for n, v in per_slot.items() if v)
+    return dict(launches=launches[name], **k)
 
 
 def profile_slots(label: str, p, cfg: SimConfig, n_slots: int = 32) -> None:
@@ -354,8 +392,7 @@ def merge_bound_ms(n: int, d: int, k: int, scaled: bool) -> tuple[float, str]:
     when scaled, and 1 - w once per selected row."""
     nbytes = 2 * n * d * 4 + k * d * 4 + n + k * (8 if scaled else 4)
     flops = (4 if scaled else 3) * k * d + k
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return roofline_ms(nbytes, flops)
 
 
 def merge_case(gen, n: int, d: int, s_kind: str, w_kind: str):
@@ -430,25 +467,26 @@ def check_merge_cases() -> float:
     return worst
 
 
-class MergeRecorder:
-    """Wraps a merge wrapper on the learning layer's path and keeps the
-    inputs of its last ``keep`` calls (the run's own merge inputs); the
-    wrapped kernel still launches and counts."""
+class Recorder:
+    """Wraps a kernel wrapper where ``module`` (a layer on the main path)
+    calls it and keeps the inputs of its last ``keep`` calls (the run's own
+    inputs); the wrapped kernel still launches and counts."""
 
-    def __init__(self, name: str, keep: int = 64):
+    def __init__(self, name: str, keep: int = 64, module=learning):
         self.name, self.keep, self.calls = name, keep, []
-        self.fn = getattr(learning, name)
+        self.module = module
+        self.fn = getattr(module, name)
 
     def __call__(self, *args, **kw):
         self.calls = (self.calls + [(args, kw)])[-self.keep:]
         return self.fn(*args, **kw)
 
     def __enter__(self):
-        setattr(learning, self.name, self)
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        setattr(learning, self.name, self.fn)
+        setattr(self.module, self.name, self.fn)
 
 
 def time_merge(kern, plain, library, args, kw) -> dict:
@@ -471,7 +509,7 @@ def lerp_rows_scaled(own, peer, w, scale, s):
                        torch.lerp(scale[:, None] * peer, own, w[:, None]), own)
 
 
-def held_on_run_inputs(rec: MergeRecorder, kern, plain, library,
+def held_on_run_inputs(rec: Recorder, kern, plain, library,
                        bound_fn) -> dict:
     """The kernel against its plain version on every recorded call of a
     run, bit for bit; then the kernel, its plain version and the library
@@ -509,6 +547,15 @@ def counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def per_run(per_slot: dict, n_slots: int) -> dict:
+    return {k: v * n_slots for k, v in per_slot.items()}
+
+
+def slots_run(cfg: SimConfig) -> int:
+    """The slots a run steps: whole samples of ``cfg.sample_every``."""
+    return cfg.n_slots // cfg.sample_every * cfg.sample_every
+
+
 def close(a, b, rtol: float, atol: float) -> float:
     """Max abs difference; raises if ``a`` and ``b`` differ beyond
     ``atol + rtol * |b|`` or in shape."""
@@ -534,8 +581,7 @@ def learn_replay(lc, n_slots: int, seed: int = 0) -> None:
                    task=task)
     t_gpu = time.perf_counter() - t
     launches = counts()
-    if launches != {"pairwise_contacts": n_slots, "gossip_merge_rows": n_slots,
-                    "gossip_merge_rows_scaled": 0}:
+    if launches != per_run(dict(DENSE_ONLY, gossip_merge_rows=1), n_slots):
         raise AssertionError(f"learn-replay launches {launches}")
     off = simulate(p, dataclasses.replace(replay, learn=None), seed=seed,
                    device="cuda", positions=track)
@@ -551,20 +597,19 @@ def learn_replay(lc, n_slots: int, seed: int = 0) -> None:
         f"launches={launches}; cpu {t_cpu:.1f}s, gpu {t_gpu:.1f}s"))
 
 
-def learn_run(seed: int = 0) -> dict:
-    """The learning point at full size, free on the card: the merge
+def learn_run(seed: int = 0, n_slots: int = 8000) -> dict:
+    """The learning point at full width, free on the card: the merge
     kernel's main path."""
     p = paper_params(**LEARN_PARAMS)
-    cfg = SimConfig(learn=logreg_task())
-    with MergeRecorder("gossip_merge_rows") as rec:
+    cfg = SimConfig(n_slots=n_slots, learn=logreg_task())
+    with Recorder("gossip_merge_rows") as rec:
         reset_counts()
         t = time.perf_counter()
         out = simulate(p, cfg, seed=seed)             # default device: cuda
         wall = time.perf_counter() - t
         launches = counts()
-    if launches != {"pairwise_contacts": cfg.n_slots,
-                    "gossip_merge_rows": cfg.n_slots,
-                    "gossip_merge_rows_scaled": 0}:
+    if launches != per_run(dict(DENSE_ONLY, gossip_merge_rows=1),
+                           cfg.n_slots):
         raise AssertionError(f"learn-run launches {launches}")
     s = cfg.n_slots // cfg.sample_every
     for k in ("test_acc", "test_acc_holders", "learn_obs", "theta_var"):
@@ -610,14 +655,14 @@ def defended_run(seed: int = 0, n_slots: int = 1000) -> dict:
     lc = dataclasses.replace(logreg_task(),
                              defense=DefenseConfig(norm_clip=0.5))
     cfg = SimConfig(n_slots=n_slots, learn=lc)
-    with MergeRecorder("gossip_merge_rows_scaled") as rec:
+    with Recorder("gossip_merge_rows_scaled") as rec:
         reset_counts()
         t = time.perf_counter()
         out = simulate(p, cfg, seed=seed)
         wall = time.perf_counter() - t
         launches = counts()
-    if launches != {"pairwise_contacts": n_slots, "gossip_merge_rows": 0,
-                    "gossip_merge_rows_scaled": n_slots}:
+    if launches != per_run(dict(DENSE_ONLY, gossip_merge_rows_scaled=1),
+                           n_slots):
         raise AssertionError(f"defended run launches {launches}")
     ms = out.merge_stats[-1]
     if ms[learning.MS_NORMCLIP] <= 0 or not np.all(np.isfinite(out.test_acc)):
@@ -634,12 +679,204 @@ def defended_run(seed: int = 0, n_slots: int = 1000) -> dict:
     return dict(launches=launches["gossip_merge_rows_scaled"], **merged)
 
 
+# --------------------------------------------------------- cell-list kernel
+
+def cell_bound_ms(b: int, n_pad: int, cap: int,
+                  n_cells: int) -> tuple[float, str]:
+    """Least time for one 3×3-cell pass: each of the four planes (x, y,
+    zone word, id; 4 bytes a slot) read once, each word written once, and 5
+    float32 operations per (row slot, candidate) pair (2 subtractions, a
+    multiply, an FMA)."""
+    nwords = (9 * cap + 31) // 32
+    nbytes = 4 * 4 * b * n_pad * cap + 4 * b * n_cells * cap * nwords
+    flops = 5 * b * n_cells * cap * 9 * cap
+    return roofline_ms(nbytes, flops)
+
+
+def cell_case(rng, b: int, ncx: int, cap: int, zone_bits: int,
+              r_tx: float = 5.0):
+    """Cell planes on the card, ``(B, (ncx + 2)², cap)``, border ring
+    empty: each interior cell empty, full or part full; nodes uniform in
+    their cell (side r_tx), zone words with up to ``zone_bits`` bits; in a
+    fifth of the cells slot 1 sits at r_tx from slot 0 along x (one ulp
+    inside, on it, or one ulp outside) and in another fifth at r_tx in a
+    random direction."""
+    s = ncx + 2
+    n_pad = s * s
+    kind = rng.integers(0, 3, (b, n_pad))
+    occ = np.where(kind == 0, 0, np.where(kind == 1, cap,
+                                          rng.integers(0, cap + 1, (b, n_pad))))
+    px, py = np.arange(n_pad) // s, np.arange(n_pad) % s
+    occ[:, (px == 0) | (px == s - 1) | (py == 0) | (py == s - 1)] = 0
+    full = np.arange(cap) < occ[..., None]
+    x = ((px - 1)[:, None] + rng.random((b, n_pad, cap))) * r_tx
+    y = ((py - 1)[:, None] + rng.random((b, n_pad, cap))) * r_tx
+    x, y = x.astype(np.float32), y.astype(np.float32)
+    if cap >= 2:
+        r = np.float32(r_tx)
+        d = np.array([np.nextafter(r, np.float32(0)), r,
+                      np.nextafter(r, np.float32(2 * r_tx))], np.float32)
+        pick = rng.random((b, n_pad))
+        axis = pick < 0.2
+        x[..., 1] = np.where(axis, x[..., 0] + d[rng.integers(0, 3, (b, n_pad))],
+                             x[..., 1])
+        y[..., 1] = np.where(axis, y[..., 0], y[..., 1])
+        ring = (pick >= 0.2) & (pick < 0.4)
+        th = rng.uniform(0, 2 * np.pi, (b, n_pad))
+        x[..., 1] = np.where(ring, x[..., 0] + (r * np.cos(th)).astype(np.float32),
+                             x[..., 1])
+        y[..., 1] = np.where(ring, y[..., 0] + (r * np.sin(th)).astype(np.float32),
+                             y[..., 1])
+    ids = np.cumsum(full.reshape(b, -1), axis=1).reshape(full.shape) - 1
+    zone = rng.integers(0, 1 << zone_bits, (b, n_pad, cap))
+    planes = (np.where(full, x, np.float32(1e9)).astype(np.float32),
+              np.where(full, y, np.float32(1e9)).astype(np.float32),
+              np.where(full, zone, 0).astype(np.int32),
+              np.where(full, ids, -1).astype(np.int32))
+    return [torch.from_numpy(a).cuda() for a in planes]
+
+
+def check_cell_cases() -> int:
+    """The cell kernel against its plain version, bit for bit, over cap x
+    grid x batch (pairs up to 2·10⁸ per case)."""
+    rng = np.random.default_rng(14)
+    r_tx2 = 25.0
+    worst, count = 0, 0
+    for cap in (1, 4, 9, 32, 40):
+        for ncx in (1, 3, 17, 319):
+            for b in (1, 2):
+                if b * ncx * ncx * 9 * cap * cap > 2e8:
+                    continue
+                args = cell_case(rng, b, ncx, cap, 1 + count % 5)
+                got = kc.cell_close_words(*args, ncx, ncx, r_tx2)
+                want = kc.cell_close_words_ref(*args, ncx, ncx, r_tx2)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"cell kernel != plain at cap={cap} ncx={ncx} B={b}")
+                worst = max(worst, max_abs_err([got], [want]))
+                count += 1
+                del got, want, args
+    torch.cuda.empty_cache()
+    lists = check_batched_lists()
+    phase("cell-kernel", f"{count} cases bit for bit (cap 1-40, ncx 1-319, "
+                         f"B 1-2, empty and full cells, multi-bit zone words, "
+                         f"pairs an ulp either side of r_tx); "
+                         f"max_abs_err={worst}; {lists}")
+    return worst
+
+
+def check_batched_lists(seed: int = 14) -> str:
+    """``neighbor_lists`` at B = 2 on the card (the stage's own planes
+    through the kernel) against each item's CPU run, bit for bit."""
+    _, cfg = scaled_point(1024, 16)
+    grid = sim_cells.make_grid(cfg)
+    r_tx2 = float(np.float32(cfg.r_tx ** 2))
+    gen = torch.Generator().manual_seed(seed)
+    pos = torch.rand((2, cfg.n_nodes, 2), generator=gen) * cfg.area_side
+    zw = torch.randint(0, 4, (2, cfg.n_nodes), generator=gen,
+                       dtype=torch.int32)
+    nbr, ovf = sim_cells.neighbor_lists(pos.cuda(), zw.cuda(), grid, r_tx2)
+    for b in range(2):
+        want, wovf = sim_cells.neighbor_lists(pos[b:b + 1], zw[b:b + 1],
+                                              grid, r_tx2)
+        if not (torch.equal(nbr[b].cpu(), want[0])
+                and int(ovf[b]) == int(wovf[0])):
+            raise AssertionError(f"neighbor_lists at B = 2 != item {b} on "
+                                 f"the CPU")
+    return (f"neighbor_lists at N={cfg.n_nodes} B=2 on the card == each "
+            f"item on the CPU ({int((nbr >= 0).sum())} list entries)")
+
+
+def cells_replay(seed: int = 0, n_slots: int = 500) -> None:
+    """N = 1024 at the paper's density, on the cells backend: the CPU run,
+    then the card replaying its positions; every trace equal bit for bit."""
+    p, cfg = scaled_point(1024, n_slots)
+    if sim_cells.contact_backend(cfg) != "cells":
+        raise AssertionError("N = 1024 at the paper density is not on cells")
+    t = time.perf_counter()
+    cpu = simulate(p, cfg, seed=seed, device="cpu")
+    track = mobility_track(cfg, seed=seed, device="cpu")
+    t_cpu = time.perf_counter() - t
+    reset_counts()
+    t = time.perf_counter()
+    gpu = simulate(p, dataclasses.replace(cfg, mobility="replay"), seed=seed,
+                   device="cuda", positions=track)
+    t_gpu = time.perf_counter() - t
+    if counts() != per_run(CELLS_ONLY, slots_run(cfg)):
+        raise AssertionError(f"cells-replay launches {counts()}")
+    same_traces(cpu, gpu, "replayed cells run on the card != on the CPU",
+                TRACES + ("nbr_overflow",))
+    phase("cells-replay", (
+        f"N=1024 {slots_run(cfg)} slots: every trace and nbr_overflow bit for bit "
+        f"(max nbr_overflow {int(gpu.nbr_overflow.max())}); launches="
+        f"{counts()}; cpu {t_cpu:.1f}s, gpu {t_gpu:.1f}s"))
+
+
+def cells_vs_dense(seed: int = 0, n_slots: int = 500) -> None:
+    """The N = 800 point on the card on both backends: equal bit for bit."""
+    p, cfg = scaled_point(800, n_slots)
+    runs, walls = {}, {}
+    for backend, per_slot in (("cells", CELLS_ONLY), ("dense", DENSE_ONLY)):
+        reset_counts()
+        t = time.perf_counter()
+        runs[backend] = simulate(p, dataclasses.replace(
+            cfg, contact_backend=backend), seed=seed)
+        walls[backend] = time.perf_counter() - t
+        if counts() != per_run(per_slot, slots_run(cfg)):
+            raise AssertionError(f"cells-vs-dense {backend}: {counts()}")
+    if int(runs["cells"].nbr_overflow.max()) != 0:
+        raise AssertionError("cells-vs-dense: the cells run overflowed")
+    same_traces(runs["cells"], runs["dense"], "cells run != dense run")
+    phase("cells-vs-dense", (
+        f"N=800 {slots_run(cfg)} slots on the card: every trace bit for bit; "
+        f"cells {walls['cells']:.1f}s, dense {walls['dense']:.1f}s; "
+        f"busy={float(runs['cells'].busy_frac.mean()):.6f}"))
+
+
+def cells_run(seed: int = 0, n_slots: int = 2000) -> dict:
+    """The N = 12800 point of the convergence figure, free on the card on
+    the cells backend (``auto``); the cell kernel is then held against its
+    plain version on the run's last-slot planes and both are timed."""
+    p, cfg = scaled_point(12800, n_slots)
+    grid = sim_cells.make_grid(cfg)
+    with Recorder("cell_close_words", keep=1, module=sim_cells) as rec:
+        return free_run("cells-12800", p, cfg, seed, CELLS_ONLY,
+                        lambda: time_cell_kernel(*rec.calls[-1], grid),
+                        tag="cells-run")
+
+
+def time_cell_kernel(args, kw, grid) -> dict:
+    """The cell kernel against its plain version, bit for bit, on one
+    recorded call, then timed: the kernel in a CUDA graph, the plain version
+    eagerly (its ``torch.nonzero`` waits for the device, which a graph
+    cannot capture)."""
+    def kernel():
+        return kc.cell_close_words(*args, **kw)
+
+    def plain():
+        return kc.cell_close_words_ref(*args, **kw)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("cell kernel != plain on the run's last planes")
+    b, n_pad, cap = args[0].shape
+    bound_ms, bound_by = cell_bound_ms(b, n_pad, cap, grid.n_cells)
+    return dict(on=f"the last slot's planes (grid {grid.ncx}x{grid.ncy}, "
+                   f"cap {cap}, nbr_cap {grid.nbr_cap})",
+                max_abs_err=max_abs_err([got], [want]), ms=device_ms(kernel),
+                plain_ms=call_ms(plain, reps=20), call_ms=call_ms(kernel),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = list(pool.map(lambda build: build(),
-                             (kc.build_library, gm.build_library)))
+                             (kc.build_library, gm.build_library,
+                              kc.build_cell_library)))
     phase("build", f"{', '.join(lib.name for lib in libs)} in "
                    f"{time.perf_counter() - t:.2f}s")
 
@@ -673,11 +910,15 @@ def main() -> int:
     build_all()
     err = check_kernel_cases()
     merge_worst = check_merge_cases()
+    cell_worst = check_cell_cases()
     check_replay()
+    cells_replay()
     learn_replay(logreg_task(), 1000)
     learn_replay(mlp_task(), 320)
     main_run = free_run("paper", paper_params(lam=0.05, M=1), SimConfig())
     dense_run = free_run("dense-800", *scaled_point(800, 4000))
+    cells_vs_dense()
+    cell_run = cells_run()
     rows = learn_run()
     scaled = defended_run()
 
@@ -701,7 +942,15 @@ def main() -> int:
         bound_ms=main_run["bound_ms"], bound_by=main_run["bound_by"],
         library_ms=None,
     ), merge_record("gossip_merge_rows", rows, 116),
-        merge_record("gossip_merge_rows_scaled", scaled, 173)]}
+        merge_record("gossip_merge_rows_scaled", scaled, 173), dict(
+        name="cell_close_words", route="cuda",
+        source="src/repro_torch/csrc/cells.cu",
+        replaces="src/repro/kernels/contacts.py:473",
+        launches=cell_run["launches"],
+        max_abs_err=max(cell_worst, cell_run["max_abs_err"]),
+        ms=cell_run["ms"], plain_ms=cell_run["plain_ms"],
+        bound_ms=cell_run["bound_ms"], bound_by=cell_run["bound_by"],
+        library_ms=None)]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

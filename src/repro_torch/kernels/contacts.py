@@ -29,6 +29,12 @@ the launch itself dominates. The design (one warp per
 row, columns staged through shared memory, ``__ballot_sync`` packing one
 word per 32 columns, a warp-shuffle argmin) keeps every intermediate out
 of device memory, as the TPU kernel keeps it in VMEM.
+
+The module also holds the cell-list backend's kernel,
+:func:`cell_close_words` (source ``csrc/cells.cu``; it replaces the TPU
+Pallas kernel ``repro/kernels/contacts.py::cell_close_words``, body
+``_cell_kernel``), with the padded-grid layout helpers it shares with
+``repro_torch.sim.cells`` and its plain version.
 """
 
 from __future__ import annotations
@@ -45,10 +51,13 @@ from repro_torch.numerics import fma32
 __all__ = [
     "zone_words", "apply_access", "pairwise_close_ref", "candidate_best_ref",
     "pairwise_contacts_ref", "pairwise_contacts", "build_library",
-    "SOURCE", "BUILD_DIR",
+    "SOURCE", "BUILD_DIR", "padded_cell_id", "cell_neighborhood_offsets",
+    "interior_cell_ids", "cell_close_words_ref", "cell_close_words",
+    "build_cell_library", "CELL_SOURCE",
 ]
 
 SOURCE = _build.CSRC / "contacts.cu"
+CELL_SOURCE = _build.CSRC / "cells.cu"
 BUILD_DIR = _build.BUILD_DIR
 
 
@@ -171,3 +180,142 @@ def pairwise_contacts(x, y, zw, elig, prevw, r_tx2):
 
 #: Kernel launches since the last reset (the plain version never counts).
 pairwise_contacts.launches = 0
+
+
+# ---------------------------------------------------------------- cell lists
+#
+# The padded-grid layout (a border ring of empty cells one wide, the
+# interior row-major with stride ncy + 2) is defined once here, as in
+# ``repro``; ``repro_torch.sim.cells`` and the kernel derive their indexing
+# from these helpers.
+
+#: Cells in the 3×3 neighbourhood of a cell.
+NEIGHBORHOOD = 9
+
+
+def padded_cell_id(cx, cy, ncy: int):
+    """Flattened padded-grid id of interior cell ``(cx, cy)``."""
+    return (cx + 1) * (ncy + 2) + (cy + 1)
+
+
+def cell_neighborhood_offsets(ncy: int, device=None) -> torch.Tensor:
+    """The 3×3 neighbourhood as ``(9,)`` int64 flattened padded-grid
+    offsets, made on ``device`` (no copy from the host, so a CUDA graph
+    can capture it)."""
+    d = torch.arange(-1, 2, dtype=torch.int64, device=device)
+    return (d[:, None] * (ncy + 2) + d[None, :]).reshape(-1)
+
+
+def interior_cell_ids(ncx: int, ncy: int, device=None) -> torch.Tensor:
+    """``(ncx * ncy,)`` int64 padded-grid ids of the interior cells,
+    row-major."""
+    cxy = torch.arange(ncx * ncy, dtype=torch.int64, device=device)
+    return padded_cell_id(cxy // ncy, cxy % ncy, ncy)
+
+
+def cell_close_words_ref(xc, yc, zc, idc, ncx: int, ncy: int, r_tx2):
+    """Plain PyTorch version of the cell kernel.
+
+    The planes are ``(B, n_pad_cells, cap)``: x and y (float32), the zone
+    word (int32 bits) and the node id (int32, -1 empty). Returns
+    ``(B, ncx * ncy, cap, ceil(9 cap / 32))`` int32 words: bit ``c`` of row
+    slot ``i`` of an interior cell is candidate ``c`` of its 3×3
+    neighbourhood (cell ``c // cap`` in :func:`cell_neighborhood_offsets`
+    order, slot ``c % cap``) with ``d² <= r_tx² and (z_i & z_c) != 0 and
+    id_i != id_c and id_c >= 0``; d² is ``fma(dx, dx, dy*dy)`` with ``dx``
+    the row's x minus the candidate's.
+
+    A row slot whose zone word is 0 shares no zone with any candidate, so
+    its words are 0; only the other rows are computed (``torch.nonzero``,
+    which waits for the device)."""
+    from repro_torch.sim.compute import pack_mask
+
+    b, _, cap = xc.shape
+    ncand = NEIGHBORHOOD * cap
+    pids = interior_cell_ids(ncx, ncy, xc.device)
+    nbrp = pids[:, None] + cell_neighborhood_offsets(ncy, xc.device)  # (C, 9)
+    bi, ci, si = torch.nonzero(zc[:, pids] != 0, as_tuple=True)
+    row = (bi, pids[ci], si)                                       # (R,)
+    cand = (bi[:, None, None], nbrp[ci][..., None],
+            torch.arange(cap, device=xc.device))                  # (R, 9, cap)
+
+    def rows(plane):
+        return plane[row][:, None]                                 # (R, 1)
+
+    def cands(plane):
+        return plane[cand].reshape(-1, ncand)                      # (R, 9 cap)
+
+    dx = rows(xc) - cands(xc)
+    dy = rows(yc) - cands(yc)
+    d2 = fma32(dx, dx, dy * dy)
+    ij = cands(idc)
+    close = ((d2 <= r_tx2) & ((rows(zc) & cands(zc)) != 0)
+             & (rows(idc) != ij) & (ij >= 0))
+    out = torch.zeros((b, ncx * ncy, cap, (ncand + 31) // 32),
+                      dtype=torch.int32, device=xc.device)
+    out[bi, ci, si] = pack_mask(close)
+    return out
+
+
+def build_cell_library() -> Path:
+    """Compile ``csrc/cells.cu`` for sm_90a unless a build of this exact
+    source exists; returns the shared library's path."""
+    return _build.build_library(CELL_SOURCE, "cells")
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_library():
+    lib = ctypes.CDLL(str(build_cell_library()))
+    fn = lib.cell_close_words_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cell_inputs(xc, yc, zc, idc, ncx: int, ncy: int):
+    if xc.dim() != 3:
+        raise ValueError(f"xc: want (B, n_pad_cells, cap), got {tuple(xc.shape)}")
+    b, n_pad, cap = xc.shape
+    if n_pad != (ncx + 2) * (ncy + 2) or ncx < 1 or ncy < 1 or cap < 1:
+        raise ValueError(f"planes of {n_pad} cells x {cap} slots do not fit "
+                         f"a padded {ncx} x {ncy} grid")
+    want = ((xc, torch.float32), (yc, torch.float32), (zc, torch.int32),
+            (idc, torch.int32))
+    for name, (t, dtype) in zip(("xc", "yc", "zc", "idc"), want):
+        if t.device != xc.device:
+            raise ValueError(f"{name} is on {t.device}, xc on {xc.device}")
+        if tuple(t.shape) != (b, n_pad, cap) or t.dtype != dtype:
+            raise ValueError(f"{name}: want {(b, n_pad, cap)} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return b, cap, (NEIGHBORHOOD * cap + 31) // 32
+
+
+def cell_close_words(xc, yc, zc, idc, ncx: int, ncy: int, r_tx2):
+    """The 3×3-cell close pass: the CUDA kernel on a CUDA tensor, the plain
+    version (:func:`cell_close_words_ref`) on a CPU tensor. The kernel's
+    input contract (shapes, dtypes, contiguous planes) is checked on both."""
+    b, cap, nwords = _check_cell_inputs(xc, yc, zc, idc, ncx, ncy)
+    if xc.device.type == "cpu":
+        return cell_close_words_ref(xc, yc, zc, idc, ncx, ncy, r_tx2)
+    if xc.device.type != "cuda":
+        raise ValueError(f"cell_close_words: unsupported device {xc.device}")
+    _build.check_hopper(xc.device, "cell_close_words")
+    out = torch.empty((b, ncx * ncy, cap, nwords), dtype=torch.int32,
+                      device=xc.device)
+    with torch.cuda.device(xc.device):
+        err = _cell_library().cell_close_words_launch(
+            xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), idc.data_ptr(),
+            out.data_ptr(), b, ncx, ncy, cap, nwords, r_tx2,
+            torch.cuda.current_stream(xc.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"cell_close_words launch failed: CUDA error {err}")
+    cell_close_words.launches += 1
+    return out
+
+
+#: Kernel launches since the last reset (the plain version never counts).
+cell_close_words.launches = 0

@@ -20,15 +20,19 @@ parameters are snapshotted when connections form, and finished training
 jobs take an SGD step. It never feeds back into the protocol.
 
 The port runs the paper's validation loop: ``rdm`` (or ``replay``)
-mobility at constant speed, a single static zone, the dense contact
-backend, no faults, any ``M``, with or without learning (average or
-trimmed defenses). Any other configuration raises ``NotImplementedError``
-naming the slice that will port it.
+mobility at constant speed, a single static zone, no faults, any ``M``,
+with or without learning (average or trimmed defenses), on either contact
+backend: the dense O(N²) sweep, or the cell lists of
+``repro_torch.sim.cells`` (``contact_backend="cells"``, or ``"auto"`` from
+``cells.AUTO_CELLS_MIN_N`` nodes up), whose running overflow count comes
+back as ``nbr_overflow``. Any other configuration raises
+``NotImplementedError`` naming the slice that will port it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import numpy as np
@@ -39,24 +43,20 @@ from repro_torch.core.meanfield import FGParams
 from repro_torch.core.zones import ZoneSet, single_zone
 from repro_torch.kernels.contacts import zone_words
 from repro_torch.numerics import fma32
-from repro_torch.sim import compute, contacts, faults, observations
+from repro_torch.sim import cells, compute, contacts, faults, observations
 from repro_torch.sim import learn as learning
 from repro_torch.sim.mobility import get_mobility, replay_model
 from repro_torch.sim.state import init_sim_state
 
 __all__ = ["SimConfig", "SimOutputs", "effective_zones", "zone_churn",
-           "dynamic_params", "simulate", "mobility_track", "AUTO_CELLS_MIN_N"]
-
-#: ``contact_backend="auto"`` switches to the cell-list backend at this N.
-AUTO_CELLS_MIN_N = 1024
+           "dynamic_params", "simulate", "mobility_track", "check_overflow"]
 
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Geometry, mobility and discretization (paper defaults): the fields
     and defaults of ``repro.sim.SimConfig`` that this slice reads or
-    refuses. The rwp, manhattan and cell-list settings come with their
-    slices."""
+    refuses. The rwp and manhattan settings come with their slice."""
 
     n_nodes: int = 200
     area_side: float = 200.0
@@ -74,9 +74,24 @@ class SimConfig:
     mobility: str = "rdm"                # "rdm" | "replay" (positions given)
     zones: ZoneSet | None = None         # None = one centered disc
     contact_backend: str = "auto"        # "dense" | "cells" | "auto"
+    cell_cap: int | None = None          # cells: node slots per grid cell
+                                         # (None = density-derived auto)
+    nbr_cap: int | None = None           # cells: neighbour-list cap per node
+                                         # (None = density-derived auto)
     speed_range: tuple | None = None     # per-node U(lo, hi) speeds (rdm)
     faults: Any = None
     learn: Any = None
+    overflow_mode: str = "warn"          # cells: nbr_overflow > 0 warns
+                                         # ("warn") or raises ("strict")
+
+    def __post_init__(self):
+        if self.speed_range is not None and self.mobility != "rdm":
+            raise ValueError(
+                "speed_range is implemented for the 'rdm' mobility model "
+                f"only (got mobility={self.mobility!r})")
+        if self.overflow_mode not in ("warn", "strict"):
+            raise ValueError(f"unknown overflow_mode {self.overflow_mode!r}; "
+                             "known: 'warn', 'strict'")
 
 
 @dataclasses.dataclass
@@ -94,6 +109,9 @@ class SimOutputs:
     availability_z: np.ndarray | None = None   # (S, M, K_zones)
     stored_info_z: np.ndarray | None = None    # (S, K_zones)
     n_in_rz_z: np.ndarray | None = None        # (S, K_zones)
+    # cells backend only: running max of close pairs dropped per slot by
+    # the bounded cell buffers and lists (0 = contact detection exact)
+    nbr_overflow: np.ndarray | None = None     # (S,)
     # learning telemetry (enabled LearnConfig only; repro_torch.sim.learn)
     test_acc: np.ndarray | None = None         # (S,) population mean accuracy
     test_acc_holders: np.ndarray | None = None # (S,) mean over in-RZ holders
@@ -135,18 +153,12 @@ def _check_supported(p: FGParams, cfg: SimConfig) -> int:
         raise NotImplementedError(
             "simulator covers the W >= M (w = 1) regime used in the paper's "
             "evaluation; pass M = min(M, W) for the general case")
+    backend = cells.contact_backend(cfg)        # raises on an unknown name
     later = None
     if cfg.mobility not in ("rdm", "replay"):
         later = f"mobility={cfg.mobility!r} (the rwp/manhattan slice)"
     elif cfg.speed_range is not None:
         later = "speed_range (the rwp/manhattan mobility slice)"
-    elif cfg.contact_backend == "cells" or (
-            cfg.contact_backend == "auto" and cfg.n_nodes >= AUTO_CELLS_MIN_N):
-        later = (f"the cell-list contact backend (contact_backend="
-                 f"{cfg.contact_backend!r}, n_nodes={cfg.n_nodes}; the cells "
-                 f"slice with cell_close_words)")
-    elif cfg.contact_backend not in ("dense", "auto"):
-        raise ValueError(f"unknown contact_backend {cfg.contact_backend!r}")
     elif cfg.faults is not None and getattr(cfg.faults, "enabled", True):
         later = "an enabled fault configuration (the faults slice)"
     elif cfg.learn is not None and not isinstance(cfg.learn,
@@ -158,7 +170,8 @@ def _check_supported(p: FGParams, cfg: SimConfig) -> int:
         if zs.k != 1 or zs.moving:
             later = "multi-zone or drifting ZoneSets (the multizone slice)"
     if later is not None:
-        raise NotImplementedError(f"repro_torch does not run {later} yet")
+        on = " on the cell-list backend" if backend == "cells" else ""
+        raise NotImplementedError(f"repro_torch does not run {later}{on} yet")
     return int(p.M)
 
 
@@ -213,6 +226,8 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
     tau_l = p_dyn["tau_l"]
     r_tx2 = float(np.float32(cfg.r_tx ** 2))
     zs = effective_zones(cfg)
+    use_cells = cells.contact_backend(cfg) == "cells"
+    grid = cells.make_grid(cfg) if use_cells else None
     n_run = cfg.n_slots // cfg.sample_every * cfg.sample_every
 
     lc = cfg.learn
@@ -250,15 +265,23 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
                 left, state.theta, state.theta_cnt, state.theta_age,
                 task.theta0, peer_fill=state.peer_fill if trimmed_on else None)
 
-        # ---- contact sweep: shared matrix on the CPU, fused kernel later
-        # on a CUDA device (then the O(N) recompute gives the proximity bit)
-        closew_shared, ctx = contacts.pairwise_close(mob.pos, zonew, r_tx2)
-        if closew_shared is None:
+        # ---- contact sweep. Dense: shared matrix on the CPU, fused kernel
+        # later on a CUDA device (then the O(N) recompute gives the
+        # proximity bit). Cells: bounded neighbour lists from the cell grid,
+        # and the O(N) recompute for the proximity bit.
+        if use_cells:
+            nbr, ovf = cells.neighbor_lists(mob.pos, zonew, grid, r_tx2)
             still_close = contacts.pair_still_close(
                 mob.pos, zonew, state.partner, r_tx2)
         else:
-            still_close = contacts.partner_close_bit(
-                closew_shared, state.partner)
+            closew_shared, ctx = contacts.pairwise_close(mob.pos, zonew,
+                                                         r_tx2)
+            if closew_shared is None:
+                still_close = contacts.pair_still_close(
+                    mob.pos, zonew, state.partner, r_tx2)
+            else:
+                still_close = contacts.partner_close_bit(
+                    closew_shared, state.partner)
         elapsed, _, _, ending, eff_time, pidx = contacts.advance_exchanges(
             partner=state.partner, exch_elapsed=state.exch_elapsed,
             exch_total=state.exch_total, still_close=still_close, dt=dt,
@@ -285,7 +308,14 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
         # ---- release ending pairs, form new connections ----
         partner = torch.where(ending, -1, state.partner)
         elig = (partner < 0) & in_rz
-        closew, match = contacts.match_candidates(ctx, state.prev_close, elig)
+        if use_cells:
+            best, has = cells.candidate_best(mob.pos, nbr, state.prev_close,
+                                             elig)
+            match = contacts.mutualize(best, has)
+            closew = nbr                # the cells path's prev_close carry
+        else:
+            closew, match = contacts.match_candidates(ctx, state.prev_close,
+                                                      elig)
         conn = contacts.form_connections(
             partner=partner, match=match, has_model=has_model, inc=inc,
             snap=state.snap, snap_has=state.snap_has, exch_elapsed=elapsed,
@@ -349,6 +379,8 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
             obs_birth=obs_birth, obs_head=obs_head, tq_slot=tq_slot,
             mq_mask=mq_mask, zone_prev=zonew, **conn, **served,
             **(lrn if lc is not None else {}),
+            **(dict(nbr_overflow=torch.maximum(state.nbr_overflow, ovf))
+               if use_cells else {}),
         )
         if (slot + 1) % cfg.sample_every == 0:
             out = observations.slot_outputs(
@@ -357,6 +389,8 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
                 member=compute.unpack_mask(state.zone_prev[..., None], zs.k),
                 partner=state.partner, t_now=t_now, tau_l=tau_l,
             )
+            if use_cells:
+                out["nbr_overflow"] = state.nbr_overflow
             if lc is not None:
                 out.update(learning.learn_outputs(
                     lc, task, state.theta, state.theta_cnt,
@@ -400,6 +434,8 @@ def simulate(p: FGParams, cfg: SimConfig, seed: int = 0, device=None,
                      for f in dataclasses.fields(task)})
     outs = _run(key, dynamic_params(p), cfg, M, model, task)
     host = {k: v[:, 0].cpu().numpy() for k, v in outs.items()}
+    if "nbr_overflow" in host:
+        check_overflow(cfg, host["nbr_overflow"], context="simulate")
     s = cfg.sample_every
     return SimOutputs(
         t=(np.arange(cfg.n_slots) * cfg.dt)[s - 1::s],
@@ -413,6 +449,25 @@ def simulate(p: FGParams, cfg: SimConfig, seed: int = 0, device=None,
         availability_z=host["availability_z"],
         stored_info_z=host["stored_z"],
         n_in_rz_z=host["n_in_rz_z"],
-        **{k: host.get(k) for k in ("test_acc", "test_acc_holders",
+        **{k: host.get(k) for k in ("nbr_overflow", "test_acc", "test_acc_holders",
                                     "learn_obs", "theta_var", "merge_stats")},
     )
+
+
+def check_overflow(cfg: SimConfig, max_ovf, *, context: str = "run") -> int:
+    """Post-run check of the cells backend's ``nbr_overflow``: a positive
+    running max means contact detection dropped close pairs, which warns
+    (:class:`repro_torch.sim.cells.NeighborOverflowWarning`) under
+    ``cfg.overflow_mode == "warn"`` and raises ``RuntimeError`` under
+    ``"strict"``. Returns the max as an int (0 when clean or None)."""
+    if max_ovf is None:
+        return 0
+    mo = int(np.max(np.asarray(max_ovf))) if np.size(max_ovf) else 0
+    if mo > 0:
+        msg = (f"cell-list contact detection dropped close pairs ({context}: "
+               f"running per-slot max {mo}); results undercount contacts — "
+               "raise SimConfig.cell_cap / nbr_cap")
+        if cfg.overflow_mode == "strict":
+            raise RuntimeError(msg)
+        warnings.warn(msg, cells.NeighborOverflowWarning, stacklevel=2)
+    return mo

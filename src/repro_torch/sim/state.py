@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.sim.cells import contact_backend, make_grid
 from repro_torch.sim.mobility import RDMState
 
 __all__ = ["SimState", "init_sim_state", "queue_dtypes", "state_from_numpy",
@@ -47,7 +48,9 @@ class SimState:
     snap: torch.Tensor           # (B, N, M, KW) packed masks at connection
     snap_has: torch.Tensor       # (B, N, M) had model at connection
     order_seed: torch.Tensor     # (B, N) uint32 bits: send-order seed
-    prev_close: torch.Tensor     # (B, N, NW) packed previous contact matrix
+    prev_close: torch.Tensor     # (B, N, NW) packed previous contact matrix;
+                                 # cells backend: (B, N, nbr_cap) int32
+                                 # neighbour ids, -1 padded
     inc: torch.Tensor            # (B, N, M, KW) packed incorporation bits
     has_model: torch.Tensor      # (B, N, M)
     obs_birth: torch.Tensor      # (B, M, K) birth time of ring slot (-inf)
@@ -86,7 +89,8 @@ def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg,
     ``zone0`` is the ``(B, N)`` int32 initial zone word; the state lives on
     its device. A ``cfg.learn`` adds the learning carry, from
     ``task`` (a ``repro_torch.sim.learn.LearnTask``; drawn from the config
-    when None)."""
+    when None). With the cells backend the close carry is the bounded
+    neighbour list, ``(B, N, nbr_cap)`` int32 filled with -1."""
     b, n = zone0.shape
     k, qt, qm = cfg.k_obs, cfg.q_train, cfg.q_merge
     kw, nw = (k + 31) // 32, (n + 31) // 32
@@ -96,6 +100,11 @@ def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg,
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
+    if contact_backend(cfg) == "cells":
+        prev_close = full((b, n, make_grid(cfg).nbr_cap), -1, torch.int32)
+    else:
+        prev_close = full((b, n, nw), 0, torch.int32)
+
     return SimState(
         mob=mob_state,
         partner=full((b, n), -1, torch.int32),
@@ -104,7 +113,7 @@ def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg,
         snap=full((b, n, M, kw), 0, torch.int32),
         snap_has=full((b, n, M), False, torch.bool),
         order_seed=full((b, n), 0, torch.int32),
-        prev_close=full((b, n, nw), 0, torch.int32),
+        prev_close=prev_close,
         inc=full((b, n, M, kw), 0, torch.int32),
         has_model=full((b, n, M), False, torch.bool),
         obs_birth=full((b, M, k), float("-inf"), torch.float32),
@@ -156,12 +165,18 @@ def state_from_numpy(fields: dict, device) -> SimState:
     return SimState(mob=mob, **kw)
 
 
-def state_to_numpy(state: SimState, item: int = 0) -> dict:
+def state_to_numpy(state: SimState, cfg, item: int = 0) -> dict:
     """Batch item ``item`` of ``state`` in ``repro``'s layout (numpy,
-    uint32 words); the inverse of :func:`state_from_numpy`."""
+    uint32 words); the inverse of :func:`state_from_numpy`. ``cfg`` is the
+    configuration the state runs: on its cells backend ``prev_close`` is
+    the int32 neighbour list, not words."""
+    cells = contact_backend(cfg) == "cells"
+    words = tuple(f for f in WORD_FIELDS
+                  if not (cells and f == "prev_close"))
+
     def conv(name, t):
         a = t[item].cpu().numpy()
-        return a.view(np.uint32) if name in WORD_FIELDS else a
+        return a.view(np.uint32) if name in words else a
 
     out = {f.name: conv(f.name, getattr(state, f.name))
            for f in dataclasses.fields(SimState)

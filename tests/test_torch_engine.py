@@ -158,7 +158,7 @@ def test_state_carried_across_equals_port_init(m_count):
                 assert torch.equal(getattr(a, g.name), getattr(b, g.name))
         else:
             assert a.dtype == b.dtype and torch.equal(a, b), f.name
-    back = state_to_numpy(carried)
+    back = state_to_numpy(carried, cfg)
     for k, v in fields.items():
         if k == "mob":
             for g, arr in v.items():
@@ -189,8 +189,10 @@ def test_default_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    (dict(n_nodes=1024), "cell-list"),
-    (dict(contact_backend="cells"), "cell-list"),
+    (dict(contact_backend="cells", zones=ZoneSet(
+        centers=((20.0, 20.0), (40.0, 40.0)), radii=(15.0, 15.0))),
+     "cell-list"),
+    (dict(contact_backend="cells", faults=object()), "cell-list"),
     (dict(mobility="rwp"), "rwp"),
     (dict(speed_range=(0.5, 1.5)), "speed_range"),
     (dict(learn=logreg_task(), faults=object()), "faults slice"),

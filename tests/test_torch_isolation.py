@@ -29,7 +29,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.core.merge", "repro_torch.models.tiny",
                  "repro_torch.optim.optimizers",
                  "repro_torch.kernels.gossip_merge",
-                 "repro_torch.configs.fg_learn"):
+                 "repro_torch.configs.fg_learn", "repro_torch.sim.cells",
+                 "repro_torch.kernels.contacts", "repro_torch.sim.state"):
         assert name in modules, name
     code = "\n".join([
         "import importlib, sys",
