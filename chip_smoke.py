@@ -48,8 +48,31 @@ Phases (any failure ends the run with a non-zero exit code):
     availability sane, the kernel held against its plain version on the
     last slot's planes and timed beside its bound; then a 32-slot profile.
 
+13. flat-merge-kernel — ``gossip_merge`` vs its plain version, bit for
+    bit, in both operand orders, over float32 and bfloat16, lengths 1 to
+    16385, an odd 3-D shape, a view at an odd element offset and the
+    125.8 M-element embedding leaf, w in {0, 1/3, 0.5, 1, random}, success
+    true and false (NaN and inf in the peer when false); a non-contiguous
+    input must raise;
+14. init-replay — the test-size h2o-danube-3-4b ``init_lm`` on the card
+    equals the same call on the CPU, bit for bit, in float32 and bfloat16;
+    round-replay — three rounds over that tree (float32 and bfloat16, with
+    a one-element float32 leaf, segments 1 and 3) on the card equal the
+    same rounds on the CPU, bit for bit, every merge on the card through
+    the kernel (in both of its operand orders);
+15. gossip-round — h2o-danube-3-4b at its published widths, 2 of its 24
+    layers, R = 4 replicas: three rounds through the kernel and again
+    through the plain merge on the card, every leaf bit for bit, count and
+    age exact, the kernel's launches per round;
+16. rounds-run — 16 rounds of that configuration, timed: wall per round,
+    the kernel on the embedding leaf beside its bound, plain and library
+    times, device time per round beside the round's bound, the device's
+    busy share and peak memory; every leaf finite, the replicas' spread
+    lower after every round with a merge of distinct replicas and no
+    churn, and a churned replica equal to the default bit for bit.
+
 Phases 9-12 run beside the older ones: 9 after 4, 10 after 5, 11 and 12
-after 7.
+after 7; 13 runs after 4, and 14-16 after the others.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -58,7 +81,9 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -73,11 +98,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import random as jr  # noqa: E402
+from repro_torch.configs import get_arch_config  # noqa: E402
+from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.configs.fg_paper import DENSITY, paper_params  # noqa: E402
 from repro_torch.configs.fg_learn import logreg_task, mlp_task  # noqa: E402
+from repro_torch.core import gossip  # noqa: E402
 from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
 from repro_torch.kernels import gossip_merge as gm  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    init_lm, stack_replicas)
 from repro_torch.sim import cells as sim_cells  # noqa: E402
 from repro_torch.sim import learn as learning  # noqa: E402
 from repro_torch.sim.compute import pack_mask  # noqa: E402
@@ -85,6 +115,7 @@ from repro_torch.sim.engine import (SimConfig, _zone_member,  # noqa: E402
                                     effective_zones, mobility_track,
                                     simulate)
 from repro_torch.sim.mobility import get_mobility  # noqa: E402
+from repro_torch.tree import tree_items, tree_map  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 #: float32 FLOP/s outside the tensor cores.
@@ -100,12 +131,27 @@ LEARN_PARAMS = dict(lam=0.05, Lam=10.0, M=1, T_T=5.0)
 LEARN_TOL = dict(test_acc=(0.0, 2e-3), test_acc_holders=(0.0, 2e-3),
                  learn_obs=(1e-5, 0.0), theta_var=(1e-3, 1e-7))
 KERNELS = (kc.pairwise_contacts, gm.gossip_merge_rows,
-           gm.gossip_merge_rows_scaled, kc.cell_close_words)
+           gm.gossip_merge_rows_scaled, kc.cell_close_words, gm.gossip_merge)
 #: Kernel launch counts of a dense run without learning, per slot.
 DENSE_ONLY = dict(pairwise_contacts=1, gossip_merge_rows=0,
-                  gossip_merge_rows_scaled=0, cell_close_words=0)
+                  gossip_merge_rows_scaled=0, cell_close_words=0,
+                  gossip_merge=0)
 #: ... and of a cells run without learning.
 CELLS_ONLY = dict(DENSE_ONLY, pairwise_contacts=0, cell_close_words=1)
+#: The gossip round's configuration: h2o-danube-3-4b at its published
+#: widths (arXiv:2401.16818), cut to 2 of its 24 layers, R = 4 replicas,
+#: each from its own key, and a fifth initialisation as the default.
+GOSSIP_ARCH, GOSSIP_LAYERS, GOSSIP_R = "h2o-danube-3-4b", 2, 4
+#: seed 1: under the default seed 0 no replica churns in the first 16
+#: rounds (64 draws at 0.05), which would leave the churn path unexercised;
+#: under seed 1 one replica churns in round 5 and two in round 11.
+GOSSIP = gossip.GossipConfig(matching="random", success_prob=0.9,
+                             busy_prob=0.05, churn_prob=0.05,
+                             merge_policy="obs_count", seed=1)
+#: count before round 0, so that the obs_count weights are not all 0.5.
+GOSSIP_COUNTS = (1.0, 2.0, 3.0, 7.0)
+#: gossip-round's rounds: three of seed 1's, with the churn of round 11.
+CHECKED_ROUNDS = (10, 11, 12)
 
 
 _START = time.perf_counter()
@@ -870,6 +916,382 @@ def time_cell_kernel(args, kw, grid) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# ------------------------------------------------------- the gossip round
+
+def leaf_bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 or bfloat16 tensor's raw bits, to compare bit for bit."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def flat_merge_bound_ms(n: int, itemsize: int) -> tuple[float, str]:
+    """Least time for ``gossip_merge`` merging ``n`` elements: own and peer
+    read and the output written once; 3 float32 operations an element (a
+    multiply and an FMA) and ``1 - w`` once. (Unmerged, the kernel reads
+    no peer: 2 accesses an element.)"""
+    return roofline_ms(3 * n * itemsize, 3 * n + 1)
+
+
+def placed(x: torch.Tensor, dtype, offset: int) -> torch.Tensor:
+    """``x`` as ``dtype`` in a contiguous view that starts ``offset``
+    elements into its buffer (an odd offset breaks 16-byte alignment)."""
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def check_flat_merge_cases() -> float:
+    """``gossip_merge`` against its plain version on the card, bit for bit;
+    returns the largest abs difference (0 when bit for bit)."""
+    gen = torch.Generator("cuda").manual_seed(17)
+    shapes = [((1,), 0), ((7,), 0), ((4095,), 0), ((16385,), 0),
+              ((3, 257, 33), 0), ((4097,), 1), ((32768, 3840), 0)]
+    count, worst = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, offset in shapes:
+            own, peer = (placed(2 * torch.randn(shape, device="cuda",
+                                                generator=gen), dtype, offset)
+                         for _ in range(2))
+            bad = peer.clone()
+            bad.view(-1)[::3] = float("nan")
+            bad.view(-1)[1::3] = float("inf")
+            for w in (0.0, 1 / 3, 0.5, 1.0, "random"):
+                wt = (torch.rand((), device="cuda", generator=gen)
+                      if w == "random" else
+                      torch.tensor(np.float32(w), device="cuda"))
+                for success, own_first in itertools.product(
+                        (True, False), (False, True)):
+                    s = torch.tensor(success, device="cuda")
+                    p = peer if success else bad
+                    got = gm.gossip_merge(own, p, wt, s, own_first=own_first)
+                    want = gm.gossip_merge_ref(own, p, wt, s, own_first)
+                    torch.cuda.synchronize()
+                    label = (f"{dtype} {shape} offset {offset} "
+                             f"w={float(wt)} success={success} "
+                             f"own_first={own_first}")
+                    if not torch.equal(leaf_bits(got), leaf_bits(want)):
+                        raise AssertionError(f"gossip_merge != plain: {label}")
+                    if not (success or torch.equal(leaf_bits(got),
+                                                   leaf_bits(own))):
+                        raise AssertionError(
+                            f"unselected leaf changed: {label}")
+                    worst = max(worst, float((got.float() - want.float())
+                                             .abs().max()))
+                    count += 1
+            del own, peer, bad
+    x = torch.zeros((64, 32), device="cuda")
+    try:
+        gm.gossip_merge(x.t(), x.t(), torch.tensor(0.5, device="cuda"),
+                        torch.tensor(True, device="cuda"))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("gossip_merge took a non-contiguous input")
+    torch.cuda.empty_cache()
+    phase("flat-merge-kernel", (
+        f"{count} cases bit for bit (float32 and bfloat16; lengths 1 to "
+        f"125829120, an odd 3-D shape, a view at an odd offset; w in "
+        f"{{0, 1/3, 0.5, 1, random}}; success true/false, NaN/inf in the "
+        f"unselected peer; both operand orders); a non-contiguous input "
+        f"raised; "
+        f"max_abs_err={worst}"))
+    return worst
+
+
+def check_init_replay(seed: int = 7) -> None:
+    """The test-size config's ``init_lm`` on the card equals the same call
+    on the CPU, bit for bit (``random.normal`` on the card included)."""
+    leaves = 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = reduced(get_arch_config(GOSSIP_ARCH), dtype=dtype)
+        cpu = init_lm(cfg, jr.PRNGKey(seed), device="cpu")
+        gpu = init_lm(cfg, jr.PRNGKey(seed))          # default device: cuda
+        for (path, c), (_, g) in zip(tree_items(cpu), tree_items(gpu)):
+            if g.device.type != "cuda" or not torch.equal(
+                    leaf_bits(g.cpu()), leaf_bits(c)):
+                raise AssertionError(f"init_lm on the card != CPU: {dtype} "
+                                     f"{path}")
+            leaves += 1
+    phase("init-replay", f"reduced {GOSSIP_ARCH} (float32 and bfloat16): "
+                         f"{leaves} leaves bit for bit, card vs CPU")
+
+
+def check_round_replay(seed: int = 7) -> None:
+    """Rounds over the test-size tree with a one-element float32 leaf
+    added (its merge, and the segmented round's float32 merges, take the
+    kernel's other operand order), on the card and on the CPU: every leaf
+    bit for bit, count and age exact, one launch per replica and non-empty
+    leaf segment."""
+    notes, merged = [], 0
+    for dtype, segments in itertools.product(("float32", "bfloat16"),
+                                             (1, 3)):
+        arch = reduced(get_arch_config(GOSSIP_ARCH), dtype=dtype)
+        trees = [init_lm(arch, jr.PRNGKey(seed + k), device="cpu")
+                 for k in range(GOSSIP_R + 1)]
+        rng = np.random.default_rng(seed)
+        pc = dict(stack_replicas(trees[:GOSSIP_R]), scale=torch.from_numpy(
+            rng.normal(size=(GOSSIP_R, 1)).astype(np.float32)))
+        dc = dict(stack_replicas([trees[GOSSIP_R]] * GOSSIP_R),
+                  scale=torch.zeros(GOSSIP_R, 1))
+        pg, dg = (tree_map(lambda x: x.cuda(), t) for t in (pc, dc))
+        sc = dict(count=torch.tensor(GOSSIP_COUNTS),
+                  age=torch.zeros(GOSSIP_R))
+        sg = {k: v.cuda() for k, v in sc.items()}
+        fn, R = gossip.build_gossip_round(
+            GOSSIP_R, dataclasses.replace(GOSSIP, segments=segments))
+        for r in CHECKED_ROUNDS:
+            segs = sum(R for _, x in tree_items(pc)
+                       if (r % segments) * -(-x[0].numel() // segments)
+                       < x[0].numel())
+            success = fn.gates(sc, r).success
+            merged += int(success.sum())
+            reset_counts()
+            pg, sg = fn(pg, sg, dg, r)
+            torch.cuda.synchronize()
+            if counts() != dict(DENSE_ONLY, pairwise_contacts=0,
+                                gossip_merge=segs):
+                raise AssertionError(f"round-replay launches {counts()}, "
+                                     f"want {segs}")
+            pc, sc = fn(pc, sc, dc, r)
+            for (path, c), (_, g) in zip(tree_items(pc), tree_items(pg)):
+                if not torch.equal(leaf_bits(g.cpu()), leaf_bits(c)):
+                    raise AssertionError(f"round {r} on the card != CPU: "
+                                         f"{dtype} segments={segments} "
+                                         f"{path}")
+            for k in ("count", "age"):
+                if not torch.equal(sg[k].cpu(), sc[k]):
+                    raise AssertionError(f"round {r}: {k} card != CPU")
+            notes.append(f"{dtype}/seg{segments}/r{r}: {segs} launches")
+    if not merged:
+        raise AssertionError("round-replay merged no replica")
+    phase("round-replay", (
+        f"reduced {GOSSIP_ARCH} + a one-element float32 leaf, R={GOSSIP_R}, "
+        f"rounds {CHECKED_ROUNDS}, float32 and bfloat16, segments 1 and 3: "
+        f"card == CPU bit for bit on every leaf, count and age; {merged} "
+        f"replica merges; " + ", ".join(notes)))
+
+
+def gossip_replicas():
+    """The gossip configuration's R replicas (keys 0..R-1), its default
+    (key R, on every replica) and the start state, on the card."""
+    cfg = get_arch_config(GOSSIP_ARCH, n_layers=GOSSIP_LAYERS)
+    t = time.perf_counter()
+    params = stack_replicas([init_lm(cfg, jr.PRNGKey(k))
+                             for k in range(GOSSIP_R)])
+    default = stack_replicas([init_lm(cfg, jr.PRNGKey(GOSSIP_R))] * GOSSIP_R)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    state = dict(count=torch.tensor(GOSSIP_COUNTS, device="cuda"),
+                 age=torch.zeros(GOSSIP_R, device="cuda"))
+    n = sum(v[0].numel() for _, v in tree_items(params))
+    phase("gossip-init", (
+        f"{GOSSIP_ARCH} at its published widths, n_layers={GOSSIP_LAYERS} "
+        f"(of 24), R={GOSSIP_R}: {len(tree_items(params))} leaves, {n} "
+        f"parameters a replica, bfloat16; init of {GOSSIP_R + 1} trees "
+        f"{init_s:.1f}s"))
+    return params, default, state
+
+
+def plain_merge(own, peer, w_own, success, out=None, own_first=False):
+    """The round's merge through the plain version, on the card."""
+    return out.copy_(gm.gossip_merge_ref(own, peer, w_own, success,
+                                         own_first))
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """``module.name`` is ``fn`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def check_gossip_round(params, default, state) -> dict:
+    """Three rounds at full width through the kernel and through the plain
+    merge on the card: every leaf bit for bit, count and age exact."""
+    fn, R = gossip.build_gossip_round(GOSSIP_R, GOSSIP)
+    n_leaves = len(tree_items(params))
+    pk, sk, pp, sp = params, state, params, state
+    launches, notes = [], []
+    for r in CHECKED_ROUNDS:
+        g = fn.gates(sk, r)
+        reset_counts()
+        pk, sk = fn(pk, sk, default, r)
+        torch.cuda.synchronize()
+        launches.append(gm.gossip_merge.launches)
+        if counts() != dict(DENSE_ONLY, pairwise_contacts=0,
+                            gossip_merge=R * n_leaves):
+            raise AssertionError(f"gossip-round launches {counts()}")
+        with swapped(gossip, "gossip_merge", plain_merge):
+            pp, sp = fn(pp, sp, default, r)
+        torch.cuda.synchronize()
+        for (path, a), (_, b) in zip(tree_items(pk), tree_items(pp)):
+            if not torch.equal(leaf_bits(a), leaf_bits(b)):
+                raise AssertionError(f"round {r}: kernel != plain on {path}")
+        for k in ("count", "age"):
+            if not torch.equal(sk[k], sp[k]):
+                raise AssertionError(f"round {r}: {k} {sk[k]} != {sp[k]}")
+        notes.append(f"round {r}: success={g.success.int().tolist()} "
+                     f"churn={g.reset.int().tolist()} "
+                     f"count={sk['count'].tolist()}")
+    phase("gossip-round", (
+        f"{len(CHECKED_ROUNDS)} rounds at full width, kernel vs plain on "
+        f"the card: {n_leaves} leaves x R={R} bit for bit, count and age "
+        f"exact; gossip_merge launches per round {launches}; "
+        + "; ".join(notes)))
+    return dict(launches_per_round=launches[0])
+
+
+def embed_spread(params) -> float:
+    """Mean pairwise Euclidean distance between the replicas' embeddings."""
+    e = params["embed"]
+    d = [float((e[i].float() - e[j].float()).norm())
+         for i in range(GOSSIP_R) for j in range(i + 1, GOSSIP_R)]
+    return sum(d) / len(d)
+
+
+def rounds_run(params, default, state, n_rounds: int = 16) -> dict:
+    """The gossip round's main path: ``n_rounds`` rounds at full width on
+    the card, timed and checked."""
+    fn, R = gossip.build_gossip_round(GOSSIP_R, GOSSIP)
+    tree_bytes = sum(v[0].numel() * v.element_size()
+                     for _, v in tree_items(params))
+    n_leaves = len(tree_items(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, bounds, lowered, skipped, churned = [], [], 0, [], 0
+    p, st = params, state
+    spread = embed_spread(p)
+    spreads = [spread]
+    reset_counts()
+    for r in range(n_rounds):
+        g = fn.gates(st, r)
+        success, reset = g.success.tolist(), g.reset.tolist()
+        partner = g.partner.tolist()
+        distinct = any(success[i] and not torch.equal(
+            p["embed"][i], p["embed"][partner[i]]) for i in range(R))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, st = fn(p, st, default, r)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        bounds.append(sum(3 if s_ else 2 for s_ in success) * tree_bytes
+                      / HBM_BYTES_S * 1e3)
+        for i in range(R):
+            if reset[i]:
+                churned += 1
+                if not all(torch.equal(leaf_bits(x[i]), leaf_bits(d[i]))
+                           for (_, x), (_, d) in zip(tree_items(p),
+                                                     tree_items(default))):
+                    raise AssertionError(f"round {r}: churned replica {i} "
+                                         f"!= default")
+        new = embed_spread(p)
+        if distinct and not any(reset):
+            if not new < spread:
+                raise AssertionError(f"round {r}: spread {spread} -> {new} "
+                                     f"after a merge without churn")
+            lowered += 1
+        elif any(success) and not any(reset):
+            skipped.append(r)
+        spread = new
+        spreads.append(new)
+    launches = counts()
+    if launches != dict(DENSE_ONLY, pairwise_contacts=0,
+                        gossip_merge=n_rounds * R * n_leaves):
+        raise AssertionError(f"rounds-run launches {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    for path, leaf in tree_items(p):
+        if not torch.isfinite(leaf).all():
+            raise AssertionError(f"rounds-run: {path} not finite")
+    prof = profile_round(fn, p, st, default, n_rounds)
+    k = time_flat_merge(p, fn.gates(st, n_rounds))
+    wall = sorted(walls)
+    total = torch.cuda.get_device_properties(0).total_memory
+    phase("rounds-run", (
+        f"{n_rounds} rounds, R={R}, {GOSSIP}: wall per round first "
+        f"{1e3 * walls[0]:.3f}ms, median {1e3 * wall[len(wall) // 2]:.3f}ms, "
+        f"mean {1e3 * sum(walls) / len(walls):.3f}ms; launches={launches}; "
+        f"churned replicas {churned} (each == default bit for bit); spread "
+        f"lower on all {lowered} rounds that merged distinct replicas "
+        f"without churn (rounds merging only equal replicas: {skipped}); "
+        f"spread {', '.join(f'{v:.6g}' for v in spreads)}; every leaf "
+        f"finite; peak memory {peak / 2**30:.2f} GiB = "
+        f"{peak / total:.4f} of the card; round bound from this run's "
+        f"merges {min(bounds):.4f}-{max(bounds):.4f}ms (all merged "
+        f"{3 * R * tree_bytes / HBM_BYTES_S * 1e3:.4f}ms); {prof}; "
+        f"gossip_merge on the embedding leaf (32768, 3840) bfloat16 merged: "
+        f"kernel_us={1e3 * k['ms']:.3f} bound_us={1e3 * k['bound_ms']:.3f} "
+        f"({k['bound_by']}) plain_us={1e3 * k['plain_ms']:.3f} "
+        f"library_us={1e3 * k['library_ms']:.3f} "
+        f"kernel_call_us={1e3 * k['call_ms']:.3f}; "
+        f"max_abs_err={k['max_abs_err']}"))
+    return dict(launches=launches["gossip_merge"], **k)
+
+
+def profile_round(fn, p, st, default, r0: int, n: int = 2) -> str:
+    """Device time and busy share of ``n`` rounds (``torch.profiler``, as
+    ``profile_slots`` measures them), and the merge kernel's part."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for r in range(r0, r0 + n):
+            fn(p, st, default, r)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    if busy_us <= 0:
+        return "device time not measured"
+    merge_us = sum(e.self_device_time_total for e in dev
+                   if "merge_flat" in e.key)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
+    return (f"profiled {n} rounds: wall_per_round_ms={wall_us / n / 1e3:.3f} "
+            f"device_ms_per_round={busy_us / n / 1e3:.4f} "
+            f"merge_kernel_ms_per_round={merge_us / n / 1e3:.4f} "
+            f"device_busy_share={busy_us / wall_us:.4f} "
+            f"kernels_per_round={sum(e.count for e in dev) / n:.1f} top: "
+            + "; ".join(f"{e.key[:40]} "
+                        f"{e.self_device_time_total / n / 1e3:.3f}ms/round "
+                        f"x{e.count / n:.1f}" for e in top))
+
+
+def time_flat_merge(p, g) -> dict:
+    """``gossip_merge`` on the run's own embedding leaf (replica 0 with its
+    partner, merged at its weight): held against its plain version, then the
+    kernel, the plain version and the nearest library composition timed."""
+    own, peer = p["embed"][0], p["embed"][int(g.partner[0])]
+    w, s = g.w_own[0], torch.tensor(True, device="cuda")
+    out = torch.empty_like(own)
+    got, want = gm.gossip_merge(own, peer, w, s), gm.gossip_merge_ref(
+        own, peer, w, s)
+    torch.cuda.synchronize()
+    if not torch.equal(leaf_bits(got), leaf_bits(want)):
+        raise AssertionError("gossip_merge != plain on the embedding leaf")
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+
+    def library():
+        return torch.where(s, torch.lerp(peer.float(), own.float(), w).to(
+            own.dtype), own)
+
+    bound_ms, bound_by = flat_merge_bound_ms(own.numel(), own.element_size())
+    ms = device_ms(lambda: gm.gossip_merge(own, peer, w, s, out=out),
+                   per_graph=20, replays=5)
+    plain = device_ms(lambda: gm.gossip_merge_ref(own, peer, w, s),
+                      per_graph=2, replays=3)
+    lib = device_ms(library, per_graph=5, replays=3)
+    call = call_ms(lambda: gm.gossip_merge(own, peer, w, s, out=out), reps=50)
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, call_ms=call,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     t = time.perf_counter()
@@ -910,6 +1332,7 @@ def main() -> int:
     build_all()
     err = check_kernel_cases()
     merge_worst = check_merge_cases()
+    flat_worst = check_flat_merge_cases()
     cell_worst = check_cell_cases()
     check_replay()
     cells_replay()
@@ -921,6 +1344,12 @@ def main() -> int:
     cell_run = cells_run()
     rows = learn_run()
     scaled = defended_run()
+    check_init_replay()
+    check_round_replay()
+    params, default, state = gossip_replicas()
+    check_gossip_round(params, default, state)
+    flat = rounds_run(params, default, state)
+    del params, default, state
 
     def merge_record(name, run, line):
         return dict(
@@ -950,7 +1379,14 @@ def main() -> int:
         max_abs_err=max(cell_worst, cell_run["max_abs_err"]),
         ms=cell_run["ms"], plain_ms=cell_run["plain_ms"],
         bound_ms=cell_run["bound_ms"], bound_by=cell_run["bound_by"],
-        library_ms=None)]}
+        library_ms=None), dict(
+        name="gossip_merge", route="cuda",
+        source="src/repro_torch/csrc/gossip_merge.cu",
+        replaces="src/repro/kernels/gossip_merge.py:96",
+        launches=flat["launches"],
+        max_abs_err=max(flat_worst, flat["max_abs_err"]), ms=flat["ms"],
+        plain_ms=flat["plain_ms"], bound_ms=flat["bound_ms"],
+        bound_by=flat["bound_by"], library_ms=flat["library_ms"])]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,33 @@
+"""Public wrappers around the port's kernels (port of
+``repro.kernels.ops``).
+
+``gossip_merge_op`` merges a parameter tree leaf by leaf through
+:func:`repro_torch.kernels.gossip_merge.gossip_merge`: the CUDA kernel on a
+CUDA tensor, its plain version on a CPU tensor. ``attention_op`` and
+``ssd_op`` come with their kernels (ROADMAP §2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.gossip_merge import gossip_merge
+from repro_torch.tree import tree_items, tree_map
+
+__all__ = ["gossip_merge_op"]
+
+
+def gossip_merge_op(own_tree, peer_tree, w_own, success):
+    """Leafwise ``success ? w_own*own + (1-w_own)*peer : own`` over two
+    trees of one structure. ``w_own`` and ``success`` are one value each,
+    a tensor on the leaves' device or a Python number; as in ``repro``,
+    ``success`` counts as true where it exceeds 0.5."""
+    items = tree_items(own_tree)
+    if not items:
+        return own_tree
+    dev = items[0][1].device
+    w = torch.as_tensor(w_own, dtype=torch.float32, device=dev).reshape(())
+    s = (torch.as_tensor(success, dtype=torch.float32, device=dev)
+         > 0.5).reshape(())
+    return tree_map(lambda a, b: gossip_merge(a, b, w, s), own_tree,
+                    peer_tree)

@@ -18,15 +18,25 @@ __all__ = ["fma32", "log1p32", "erfinv32", "row_sum32", "mean32"]
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     """``a * b + c`` rounded once to float32, from float32 operands.
 
-    The product of two float32 values is exact in float64, so one float64
-    add and one rounding to float32 give the FMA. Double rounding can
-    differ from a true FMA only when the float64 sum lands exactly halfway
-    between two float32 values while the exact sum does not; the tests
-    comparing against the reference would show such a case."""
+    The product of two float32 values is exact in float64. The float64
+    sum ``s = p + c`` is rounded to odd before it is narrowed: where the
+    sum was inexact (its TwoSum error ``e`` is not 0) and its last mantissa
+    bit is 0, it steps one float64 ulp toward ``e``. A float64 value
+    rounded to odd keeps enough bits that rounding it to float32 gives the
+    correctly rounded exact sum, so the result is a true FMA; a plain
+    float64 add would round twice, and land one float32 ulp off where the
+    sum falls exactly halfway between two float32 values."""
     a = a.double() if torch.is_tensor(a) else float(a)
     b = b.double() if torch.is_tensor(b) else float(b)
     c = c.double() if torch.is_tensor(c) else float(c)
-    return (a * b + c).float()
+    p = a * b
+    s = p + c
+    bp = s - p
+    e = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    step = (e != 0) & even & torch.isfinite(s)
+    toward = torch.where(e > 0, float("inf"), float("-inf"))
+    return torch.where(step, torch.nextafter(s, toward), s).float()
 
 
 def _f32(v: float) -> float:

@@ -30,7 +30,12 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.optim.optimizers",
                  "repro_torch.kernels.gossip_merge",
                  "repro_torch.configs.fg_learn", "repro_torch.sim.cells",
-                 "repro_torch.kernels.contacts", "repro_torch.sim.state"):
+                 "repro_torch.kernels.contacts", "repro_torch.sim.state",
+                 "repro_torch.configs", "repro_torch.configs.base",
+                 "repro_torch.configs.archs", "repro_torch.models.layers",
+                 "repro_torch.models.attention",
+                 "repro_torch.models.transformer", "repro_torch.kernels.ops",
+                 "repro_torch.core.gossip", "repro_torch.tree"):
         assert name in modules, name
     code = "\n".join([
         "import importlib, sys",
