@@ -71,8 +71,30 @@ Phases (any failure ends the run with a non-zero exit code):
     lower after every round with a merge of distinct replicas and no
     churn, and a churned replica equal to the default bit for bit.
 
+17. attention-kernel — ``flash_attention`` vs its plain version in
+    float32 and bfloat16 (tests/test_kernels.py's tolerances) over D in
+    {64, 67, 100, 120, 128}, G in {1, 4}, causal on/off, window in {None,
+    96, 4096}, Sq = Skv, Sq < Skv and Sq = 1 over ragged lengths, strided
+    and misaligned views, S = 5000 and the prefill shape; float16 and
+    D = 129 must raise;
+18. serve-replay — the reduced h2o-danube-3-4b (2 layers, float32 then
+    bfloat16) on the card against the same calls on the CPU: ``lm_forward``
+    logits within tolerance, ``generate`` tokens equal in float32 (also
+    over a ring of 8 that wraps); in bfloat16 the CPU's sequence replayed
+    through the card's decode, the same token wherever the choice is
+    clear;
+19. serve-prefill — h2o-danube-3-4b at its published widths (2 layers,
+    bf16) prefilling 8192 tokens: wall, tokens/s, 2 kernel launches, layer
+    0's attention vs the plain version, the kernel timed beside its bound,
+    the plain version and SDPA;
+20. serve-generate — the serving main path: 8 requests of 64 prompt and
+    64 new tokens (``max_len`` 256): 2 launches a step, tokens in the
+    vocabulary and equal on a second call, decode logits vs the prefill's,
+    wall per step, a profile of 8 steps, and the decode kernel at 128
+    valid slots beside its bound.
+
 Phases 9-12 run beside the older ones: 9 after 4, 10 after 5, 11 and 12
-after 7; 13 runs after 4, and 14-16 after the others.
+after 7; 13 runs after 4, 14-16 after the others, and 17-20 last.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -105,9 +127,15 @@ from repro_torch.configs.fg_learn import logreg_task, mlp_task  # noqa: E402
 from repro_torch.core import gossip  # noqa: E402
 from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gossip_merge as gm  # noqa: E402
+from repro_torch.models.attention import gqa_qkv  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    init_lm, stack_replicas)
+    init_cache, init_lm, lm_forward, params_from_numpy, params_to_numpy,
+    stack_replicas)
+from repro_torch.serve import (ServeEngine, make_decode_step,  # noqa: E402
+                               make_prefill_step)
 from repro_torch.sim import cells as sim_cells  # noqa: E402
 from repro_torch.sim import learn as learning  # noqa: E402
 from repro_torch.sim.compute import pack_mask  # noqa: E402
@@ -117,10 +145,11 @@ from repro_torch.sim.engine import (SimConfig, _zone_member,  # noqa: E402
 from repro_torch.sim.mobility import get_mobility  # noqa: E402
 from repro_torch.tree import tree_items, tree_map  # noqa: E402
 
-#: Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
-#: float32 FLOP/s outside the tensor cores.
+#: Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s,
+#: float32 FLOP/s outside the tensor cores and dense bf16 FLOP/s.
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
+BF16_FLOPS_S = 989e12
 TRACES = ("availability", "busy_frac", "stored_info", "obs_birth",
           "obs_holders", "model_holders", "n_in_rz", "availability_z",
           "stored_info_z", "n_in_rz_z", "t")
@@ -131,11 +160,14 @@ LEARN_PARAMS = dict(lam=0.05, Lam=10.0, M=1, T_T=5.0)
 LEARN_TOL = dict(test_acc=(0.0, 2e-3), test_acc_holders=(0.0, 2e-3),
                  learn_obs=(1e-5, 0.0), theta_var=(1e-3, 1e-7))
 KERNELS = (kc.pairwise_contacts, gm.gossip_merge_rows,
-           gm.gossip_merge_rows_scaled, kc.cell_close_words, gm.gossip_merge)
+           gm.gossip_merge_rows_scaled, kc.cell_close_words, gm.gossip_merge,
+           fa.flash_attention)
 #: Kernel launch counts of a dense run without learning, per slot.
 DENSE_ONLY = dict(pairwise_contacts=1, gossip_merge_rows=0,
                   gossip_merge_rows_scaled=0, cell_close_words=0,
-                  gossip_merge=0)
+                  gossip_merge=0, flash_attention=0)
+#: ... and of the serving path: flash_attention only.
+NO_KERNEL = dict(DENSE_ONLY, pairwise_contacts=0)
 #: ... and of a cells run without learning.
 CELLS_ONLY = dict(DENSE_ONLY, pairwise_contacts=0, cell_close_words=1)
 #: The gossip round's configuration: h2o-danube-3-4b at its published
@@ -152,6 +184,23 @@ GOSSIP = gossip.GossipConfig(matching="random", success_prob=0.9,
 GOSSIP_COUNTS = (1.0, 2.0, 3.0, 7.0)
 #: gossip-round's rounds: three of seed 1's, with the churn of round 11.
 CHECKED_ROUNDS = (10, 11, 12)
+#: flash_attention vs its plain version: tests/test_kernels.py:12's
+#: tolerances (rtol, atol): float32 sums in other orders; in bfloat16 the
+#: output's rounding can then differ by an ulp (2^-8 relative).
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+#: Serving logits, one path against another (rtol, atol): float32 products
+#: summed in other orders (cuBLAS, the CPU, the kernel); in bfloat16 the
+#: two paths round the residual stream at other points (matrix products of
+#: other shapes, the kernel against the chunked softmax), an ulp or two of
+#: activations of order 1 (the CPU tests measured 0.05 against repro).
+SERVE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 0.1)}
+#: Serving at full width: the gossip configuration's tree (2 of 24 layers
+#: of h2o-danube-3-4b, bf16, window 4096), one prefill of twice the window,
+#: then 8 requests of 64 prompt and 64 new tokens.
+PREFILL_S = 8192
+GEN_B, GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 8, 64, 64, 256
+#: The decode kernel is timed at this many valid cache slots.
+DECODE_VALID = 128
 
 
 _START = time.perf_counter()
@@ -161,11 +210,12 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name} +{time.perf_counter() - _START:.0f}s] {msg}", flush=True)
 
 
-def roofline_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def roofline_ms(nbytes: float, flops: float,
+                flops_s: float = F32_FLOPS_S) -> tuple[float, str]:
     """The least time of a call that moves ``nbytes`` and does ``flops``
-    float32 operations: the larger of the two at the card's peaks, and
-    which one it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    operations at ``flops_s`` (default: float32): the larger of the two at
+    the card's peaks, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flops_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -190,10 +240,10 @@ def _events_ms(run, count: int) -> float:
     return start.elapsed_time(stop) / count
 
 
-def call_ms(fn, reps: int = 200) -> float:
+def call_ms(fn, reps: int = 200, warm: int = 20) -> float:
     """Time per eager call, CUDA events around ``reps`` calls: what the
     simulator's loop pays, host-side launch overhead included."""
-    for _ in range(20):
+    for _ in range(warm):
         fn()
 
     def run():
@@ -394,26 +444,32 @@ def free_run(label: str, p, cfg: SimConfig, seed: int = 0,
     return dict(launches=launches[name], **k)
 
 
+def profiled(run) -> tuple[float, list]:
+    """The wall µs of ``run()`` under ``torch.profiler`` (device activity
+    only), synchronised, and its CUDA events summed by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    return wall_us, [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def profile_slots(label: str, p, cfg: SimConfig, n_slots: int = 32) -> None:
     """Where a slot's time goes: ``torch.profiler`` (device activity only,
     a short run: its post-processing walks every event in Python) — the
     device's busy share of the wall time, CUDA kernels per slot, and the
     heaviest kernels. Reports "not measured" if the profiler sees no
     device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     short = dataclasses.replace(cfg, n_slots=n_slots,
                                 sample_every=min(cfg.sample_every, n_slots))
     simulate(p, short)
-    torch.cuda.synchronize()
     t_all = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        simulate(p, short)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t)
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    wall_us, dev = profiled(lambda: simulate(p, short))
     busy_us = sum(e.self_device_time_total for e in dev)
     if busy_us <= 0:
         phase("profile", f"{label}: device time not measured")
@@ -602,13 +658,17 @@ def slots_run(cfg: SimConfig) -> int:
     return cfg.n_slots // cfg.sample_every * cfg.sample_every
 
 
-def close(a, b, rtol: float, atol: float) -> float:
+def close(a, b, rtol: float, atol: float, what: str = "") -> float:
     """Max abs difference; raises if ``a`` and ``b`` differ beyond
-    ``atol + rtol * |b|`` or in shape."""
+    ``atol + rtol * |b|`` or in shape. Tensors are compared on the host, in
+    float32."""
+    a, b = (x.float().cpu().numpy() if torch.is_tensor(x) else x
+            for x in (a, b))
     if a.shape != b.shape or not np.all(np.isfinite(a)):
-        raise AssertionError(f"shape {a.shape} vs {b.shape} or non-finite")
+        raise AssertionError(f"{what}: shape {a.shape} vs {b.shape} or "
+                             f"non-finite")
     if not np.all(np.abs(a - b) <= atol + rtol * np.abs(b)):
-        raise AssertionError(f"beyond rtol={rtol} atol={atol}")
+        raise AssertionError(f"{what}: beyond rtol={rtol} atol={atol}")
     return float(np.abs(a.astype(np.float64) - b).max())
 
 
@@ -1234,17 +1294,11 @@ def rounds_run(params, default, state, n_rounds: int = 16) -> dict:
 def profile_round(fn, p, st, default, r0: int, n: int = 2) -> str:
     """Device time and busy share of ``n`` rounds (``torch.profiler``, as
     ``profile_slots`` measures them), and the merge kernel's part."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    def rounds():
         for r in range(r0, r0 + n):
             fn(p, st, default, r)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t)
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    wall_us, dev = profiled(rounds)
     busy_us = sum(e.self_device_time_total for e in dev)
     if busy_us <= 0:
         return "device time not measured"
@@ -1292,13 +1346,409 @@ def time_flat_merge(p, g) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
 
 
+# ------------------------------------------------------------- serving
+
+def attention_bound_ms(b: int, sq: int, skv: int, h: int, hkv: int, d: int,
+                       dtype, causal: bool, window) -> tuple[float, str]:
+    """Least time for one ``flash_attention`` call: q, k and v read once,
+    the output written once; 4·D operations (the two products) for every
+    unmasked (query, key) pair of every query head, at the card's peak for
+    the inputs' type (bf16: the tensor cores; float32: the CUDA cores)."""
+    q_pos = np.arange(sq) + (skv - sq)
+    hi = np.minimum(q_pos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(sq)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * b * sq * h * d + 2 * b * skv * hkv * d) * item
+    flops = 4 * d * pairs * b * h
+    rate = BF16_FLOPS_S if dtype == torch.bfloat16 else F32_FLOPS_S
+    return roofline_ms(nbytes, flops, rate)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 products in full float32 (hopper guide §6), set explicitly."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def attention_inputs(gen, b, sq, skv, h, hkv, d, dtype):
+    return (0.5 * torch.randn((b, sq, h, d), device="cuda",
+                              generator=gen)).to(dtype), *(
+        (0.5 * torch.randn((b, skv, hkv, d), device="cuda",
+                           generator=gen)).to(dtype) for _ in range(2))
+
+
+def check_attention_cases() -> float:
+    """``flash_attention`` against its plain version on the card, float32
+    and bfloat16, over D x G x masks x lengths (D = 67, and 100 in
+    bfloat16, take the kernel's single-value loads, the others its 16-byte
+    loads), a strided cache view, a misaligned view, a window that prunes
+    tiles, and the full-width prefill shape; inputs the kernel refuses
+    must raise. Returns the largest abs difference."""
+    gen = torch.Generator("cuda").manual_seed(18)
+    masks = [(True, None), (False, None), (True, 96), (True, 4096),
+             (False, 96)]
+    lengths = [(2, 200, 200), (1, 37, 300), (3, 1, 1), (2, 1, 129),
+               (2, 1, 300)]
+    count, worst = 0, 0.0
+    with no_tf32():
+        for dtype, d, g in itertools.product(
+                (torch.float32, torch.bfloat16), (64, 67, 100, 120, 128),
+                (1, 4)):
+            for (causal, window), (b, sq, skv) in itertools.product(
+                    masks, lengths):
+                q, k, v = attention_inputs(gen, b, sq, skv, 2 * g, 2, d,
+                                           dtype)
+                got = fa.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+                want = fa.flash_attention_ref(q, k, v, causal=causal,
+                                              window=window)
+                torch.cuda.synchronize()
+                worst = max(worst, close(
+                    got, want, *ATTN_TOL[dtype],
+                    f"{dtype} D={d} G={g} causal={causal} window={window} "
+                    f"B={b} Sq={sq} Skv={skv}"))
+                count += 1
+        big = [(torch.bfloat16, (1, 37, 5000, 32, 8, 120), None),
+               (torch.bfloat16, (1, 5000, 5000, 8, 2, 120), None),
+               (torch.float32, (1, 5000, 5000, 8, 8, 64), None),
+               (torch.bfloat16, (3, 1, 37, 32, 8, 120), "view"),
+               (torch.float32, (3, 1, 200, 8, 2, 128), "view"),
+               (torch.bfloat16, (2, 70, 70, 8, 2, 120), "offset"),
+               (torch.bfloat16, (1, PREFILL_S, PREFILL_S, 32, 8, 120), None)]
+        for dtype, (b, sq, skv, h, hkv, d), how in big:
+            q, k, v = attention_inputs(gen, b, sq, skv, h, hkv, d, dtype)
+            if how == "view":                 # a ring cache's valid slots
+                ck, cv = (torch.zeros((b, 256, hkv, d), dtype=dtype,
+                                      device="cuda") for _ in range(2))
+                ck[:, :skv], cv[:, :skv] = k, v
+                k, v = ck[:, :skv], cv[:, :skv]
+                assert not k.is_contiguous()
+            if how == "offset":               # not 16-byte aligned
+                q, k, v = (placed(x, dtype, 1) for x in (q, k, v))
+            causal = how != "view"
+            window = 4096 if causal else None
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.flash_attention_ref(q, k.contiguous(), v.contiguous(),
+                                          causal=causal, window=window)
+            torch.cuda.synchronize()
+            worst = max(worst, close(got, want, *ATTN_TOL[dtype],
+                                      f"{dtype} {(b, sq, skv, h, hkv, d)} "
+                                      f"{how or ''}"))
+            count += 1
+            del q, k, v, got, want
+    refused = 0
+    for bad in ((torch.float16, 64), (torch.float32, 129)):
+        x = torch.zeros((1, 4, 2, bad[1]), dtype=bad[0], device="cuda")
+        try:
+            fa.flash_attention(x, x, x)
+        except ValueError:
+            refused += 1
+    if refused != 2:
+        raise AssertionError("flash_attention took float16 or D > 128")
+    torch.cuda.empty_cache()
+    phase("attention-kernel", (
+        f"{count} cases within tests/test_kernels.py's tolerances (float32 "
+        f"2e-5, bfloat16 2e-2): D in {{64, 67, 100, 120, 128}} (67, 100 in "
+        f"bf16 and a view one element off take the single-value loads), G in "
+        f"{{1, 4}}, causal on/off, window in {{None, 96, 4096}}, Sq = Skv, "
+        f"Sq < Skv and Sq = "
+        f"1 over ragged lengths, strided cache views, S = 5000 with the "
+        f"window pruning tiles, the prefill shape (1, {PREFILL_S}, 32/8 "
+        f"heads, 120); float16 and D = 129 raised; max_abs_err={worst}"))
+    return worst
+
+
+def greedy_replay(cfg, gpu, cpu, prompts, n_new: int, max_len: int,
+                  window_override, tol) -> str:
+    """``ServeEngine.generate`` on the card and on the CPU. Float32: the
+    tokens equal. bfloat16: the CPU's sequence replayed through the card's
+    decode step by step, logits within ``tol`` and the same greedy token
+    wherever the CPU's best logit leads the next by more than twice the
+    tolerance (closer calls may flip on a bf16 rounding)."""
+    kw = dict(max_len=max_len, window_override=window_override)
+    reset_counts()
+    got = ServeEngine(cfg, gpu, **kw).generate(prompts.cuda(), n_new)
+    torch.cuda.synchronize()
+    want_launches = dict(NO_KERNEL, flash_attention=(
+        prompts.shape[1] + n_new) * cfg.n_layers)
+    if counts() != want_launches:
+        raise AssertionError(f"serve-replay launches {counts()}")
+    want = ServeEngine(cfg, cpu, **kw).generate(prompts, n_new)
+    if got.device.type != "cuda" or got.dtype != torch.int64:
+        raise AssertionError(f"generate gave {got.dtype} on {got.device}")
+    same = torch.equal(got.cpu(), want)
+    if cfg.dtype == "float32":
+        if not same:
+            raise AssertionError(f"generate card != CPU: {got} vs {want}")
+        return f"tokens equal ({tuple(got.shape)})"
+    seq = torch.cat([prompts, want], dim=1)
+    cg = init_cache(cfg, seq.shape[0], max_len,
+                    window_override=window_override)
+    cc = init_cache(cfg, seq.shape[0], max_len,
+                    window_override=window_override, device="cpu")
+    dec = make_decode_step(cfg, window_override=window_override)
+    worst, decided = 0.0, 0
+    for t in range(seq.shape[1] - 1):
+        lg, cg = dec(gpu, cg, seq[:, t:t + 1].cuda(), t)
+        lc, cc = dec(cpu, cc, seq[:, t:t + 1], t)
+        g = lg[:, 0, :cfg.vocab_size].float().cpu()
+        c = lc[:, 0, :cfg.vocab_size].float()
+        worst = max(worst, close(g, c, *tol, f"bf16 decode step {t}"))
+        if t >= prompts.shape[1] - 1:
+            top2 = c.topk(2, dim=-1).values
+            clear = top2[:, 0] - top2[:, 1] > 2 * tol[1]
+            if not torch.equal(g.argmax(-1)[clear], seq[clear, t + 1]):
+                raise AssertionError(f"bf16 step {t}: a clear greedy choice "
+                                     f"differs")
+            decided += int(clear.sum())
+    return (f"tokens {'equal' if same else 'not all equal'}; replayed "
+            f"decode logits max_abs_err={worst}, {decided} clear greedy "
+            f"choices equal")
+
+
+def serve_replay(seed: int = 3) -> None:
+    """The reduced h2o-danube-3-4b (2 layers) on the card against the same
+    calls on the CPU, float32 then bfloat16: ``lm_forward`` logits over 80
+    tokens (past the reduced 64-token window) and ``generate``, once with
+    a ring of 8 slots that wraps."""
+    notes = []
+    with no_tf32():
+        for dtype in ("float32", "bfloat16"):
+            cfg = reduced(get_arch_config(GOSSIP_ARCH), n_layers=2,
+                          dtype=dtype)
+            cpu = init_lm(cfg, jr.PRNGKey(seed), device="cpu")
+            gpu = params_from_numpy(params_to_numpy(cpu))
+            rng = np.random.default_rng(seed)
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 80)))
+            reset_counts()
+            lg = lm_forward(cfg, gpu, tok.cuda(), chunk=32)[0]
+            torch.cuda.synchronize()
+            if counts() != dict(NO_KERNEL, flash_attention=cfg.n_layers):
+                raise AssertionError(f"lm_forward launches {counts()}")
+            err = close(lg.cpu(), lm_forward(cfg, cpu, tok, chunk=32)[0],
+                         *SERVE_TOL[dtype], f"{dtype} lm_forward")
+            prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                    (3, 5)))
+            plain = greedy_replay(cfg, gpu, cpu, prompts, 8, 32, None,
+                                  SERVE_TOL[dtype])
+            ring = greedy_replay(cfg, gpu, cpu, prompts, 20, 32, 8,
+                                 SERVE_TOL[dtype])
+            notes.append(f"{dtype}: lm_forward max_abs_err={err}; generate "
+                         f"8: {plain}; ring of 8, 20 new: {ring}")
+    phase("serve-replay", (
+        f"reduced {GOSSIP_ARCH} (2 layers), card (kernel) vs CPU (plain "
+        f"path), tolerances {SERVE_TOL}: " + "; ".join(notes)))
+
+
+def serve_model():
+    """The serving configuration's tree on the card: ``init_lm`` from key 0
+    of the gossip configuration (2 of 24 layers at published widths)."""
+    cfg = get_arch_config(GOSSIP_ARCH, n_layers=GOSSIP_LAYERS)
+    params = init_lm(cfg, jr.PRNGKey(0))
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def time_attention(q, k, v, causal: bool, window, per_graph: int,
+                   replays: int, plain_reps: int) -> dict:
+    """The kernel (CUDA graph), its plain version (eager) and SDPA with the
+    same mask (``enable_gqa``; a CUDA graph), on the same inputs."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    bound_ms, bound_by = attention_bound_ms(b, sq, skv, h, hkv, d, q.dtype,
+                                            causal, window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    q_pos = torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device="cuda")[None, :]
+    band = torch.ones((sq, skv), dtype=torch.bool, device="cuda")
+    if causal:
+        band &= q_pos >= k_pos
+    if window is not None:
+        band &= q_pos - k_pos < window
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float() - fa.flash_attention(
+        q, k, v, causal=causal, window=window).float()).abs().max())
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              window=window),
+                   per_graph=per_graph, replays=replays)
+    plain = call_ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal,
+                                                   window=window),
+                    reps=plain_reps, warm=1)
+    lib = device_ms(library, per_graph=per_graph, replays=replays)
+    call = call_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              window=window),
+                   reps=per_graph, warm=1)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, call_ms=call,
+                bound_ms=bound_ms, bound_by=bound_by, library_err=lib_err)
+
+
+def serve_prefill(cfg, params, seed: int = 19) -> dict:
+    """``make_prefill_step`` over B = 1, S = 8192 tokens (twice the window,
+    so the band is live): wall time, tokens/s, the kernel's launches, layer
+    0's attention held against the plain version on its own q/k/v, and
+    the kernel timed there beside its bound, the plain version and SDPA."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, PREFILL_S))).cuda()
+    prefill = make_prefill_step(cfg)
+    prefill(params, dict(tokens=tokens[:, :256]))         # warm-up
+    reset_counts()
+    t = time.perf_counter()
+    logits = prefill(params, dict(tokens=tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = counts()
+    if launches != dict(NO_KERNEL, flash_attention=cfg.n_layers):
+        raise AssertionError(f"serve-prefill launches {launches}")
+    if tuple(logits.shape) != (1, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("serve-prefill logits not finite or misshapen")
+    layer0 = tree_map(lambda a: a[0], params["blocks"][0])
+    h = rmsnorm(params["embed"][tokens], layer0["norm_mix"], cfg.norm_eps)
+    q, k, v = gqa_qkv(layer0["attn"], cfg, h)
+    got = fa.flash_attention(q, k, v, causal=True, window=cfg.window)
+    err = close(got, fa.flash_attention_ref(q, k, v, causal=True,
+                                             window=cfg.window),
+                 *ATTN_TOL[torch.bfloat16], "layer 0 prefill attention")
+    del got, h
+    timed = time_attention(q, k, v, True, cfg.window, per_graph=3,
+                           replays=2, plain_reps=2)
+    del q, k, v
+    torch.cuda.empty_cache()
+    phase("serve-prefill", (
+        f"{GOSSIP_ARCH} at published widths, {cfg.n_layers} of 24 layers, "
+        f"bf16, B=1 S={PREFILL_S} window {cfg.window}: wall "
+        f"{1e3 * wall:.3f}ms, {PREFILL_S / wall:.1f} tokens/s; launches "
+        f"{launches['flash_attention']}; logits finite; layer 0 attention vs "
+        f"plain max_abs_err={err}; kernel_ms={timed['ms']:.4f} "
+        f"kernel_call_ms={timed['call_ms']:.4f} bound_ms="
+        f"{timed['bound_ms']:.4f} ({timed['bound_by']}) plain_ms="
+        f"{timed['plain_ms']:.4f} sdpa_ms={timed['library_ms']:.4f} "
+        f"(sdpa vs kernel max abs {timed['library_err']})"))
+    return dict(launches=launches["flash_attention"], max_abs_err=err,
+                wall_ms=1e3 * wall, **timed)
+
+
+def profile_decode(params, cfg, prompts, max_len: int, n: int = 8) -> str:
+    """Device time, busy share and kernels per step over ``n`` decode
+    steps at the end of a warm cache (``torch.profiler``)."""
+    cache = init_cache(cfg, prompts.shape[0], max_len)
+    dec = make_decode_step(cfg)
+    for t in range(prompts.shape[1]):
+        _, cache = dec(params, cache, prompts[:, t:t + 1], t)
+
+    def steps():
+        tok = prompts[:, -1:]
+        for i in range(n):
+            lg, _ = dec(params, cache, tok, prompts.shape[1] + i)
+            tok = lg[:, -1:, :cfg.vocab_size].argmax(dim=-1)
+
+    wall_us, dev = profiled(steps)
+    busy_us = sum(e.self_device_time_total for e in dev)
+    if busy_us <= 0:
+        return "device time not measured"
+    attn_us = sum(e.self_device_time_total for e in dev
+                  if "flash_kernel" in e.key)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
+    return (f"profiled {n} steps at {prompts.shape[1]}+ cached tokens: "
+            f"wall_per_step_ms={wall_us / n / 1e3:.4f} device_ms_per_step="
+            f"{busy_us / n / 1e3:.4f} flash_kernel_ms_per_step="
+            f"{attn_us / n / 1e3:.4f} device_busy_share="
+            f"{busy_us / wall_us:.4f} kernels_per_step="
+            f"{sum(e.count for e in dev) / n:.1f} top: "
+            + "; ".join(f"{e.key[:40]} {e.self_device_time_total / n:.1f}"
+                        f"us/step x{e.count / n:.1f}" for e in top))
+
+
+def serve_generate(cfg, params, seed: int = 20) -> dict:
+    """``ServeEngine.generate`` at full width: 8 requests, 64-token prompts,
+    64 new tokens, ``max_len`` 256 (128 decode steps). Tokens in the
+    vocabulary, a second call equal, the decode logits at the last prompt
+    position against ``make_prefill_step``'s; wall per step, the device's
+    busy share, and the decode kernel at 128 valid slots beside its
+    bound."""
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT))).cuda()
+    engine = ServeEngine(cfg, params, max_len=GEN_MAX_LEN)
+    steps = GEN_PROMPT + GEN_NEW
+    reset_counts()
+    t = time.perf_counter()
+    first = engine.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t
+    launches = counts()
+    if launches != dict(NO_KERNEL, flash_attention=steps * cfg.n_layers):
+        raise AssertionError(f"serve-generate launches {launches}")
+    t = time.perf_counter()
+    second = engine.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t
+    if tuple(first.shape) != (GEN_B, GEN_NEW) or not (
+            0 <= int(first.min()) and int(first.max()) < cfg.vocab_size):
+        raise AssertionError("serve-generate tokens out of the vocabulary")
+    if not torch.equal(first, second):
+        raise AssertionError("serve-generate: a second call differs")
+    cache = init_cache(cfg, GEN_B, GEN_MAX_LEN)
+    dec = make_decode_step(cfg)
+    for i in range(GEN_PROMPT):
+        lg, cache = dec(params, cache, prompts[:, i:i + 1], i)
+    pre = make_prefill_step(cfg)(params, dict(tokens=prompts))
+    err = close(lg[:, 0], pre, *SERVE_TOL["bfloat16"],
+                 "decode vs prefill logits at the last prompt position")
+    prof = profile_decode(params, cfg, prompts, GEN_MAX_LEN)
+    del cache
+    gen = torch.Generator("cuda").manual_seed(21)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (0.5 * torch.randn((GEN_B, 1, h, d), device="cuda",
+                           generator=gen)).to(torch.bfloat16)
+    ck, cv = ((0.5 * torch.randn((GEN_B, GEN_MAX_LEN, hkv, d), device="cuda",
+                                 generator=gen)).to(torch.bfloat16)
+              for _ in range(2))
+    k, v = ck[:, :DECODE_VALID], cv[:, :DECODE_VALID]
+    kerr = close(fa.flash_attention(q, k, v, causal=False),
+                  fa.flash_attention_ref(q, k, v, causal=False),
+                  *ATTN_TOL[torch.bfloat16], "decode-shape attention")
+    timed = time_attention(q, k, v, False, None, per_graph=50, replays=20,
+                           plain_reps=50)
+    per_step = (wall1 + wall2) / 2 / steps
+    phase("serve-generate", (
+        f"B={GEN_B}, prompt {GEN_PROMPT}, {GEN_NEW} new, max_len "
+        f"{GEN_MAX_LEN}: wall {1e3 * wall1:.3f} / {1e3 * wall2:.3f}ms "
+        f"(first / second call), {1e3 * per_step:.4f}ms per decode step, "
+        f"{GEN_B * GEN_NEW / wall2:.1f} new tokens/s (second call); launches "
+        f"{launches['flash_attention']} ({launches['flash_attention'] / steps:.0f}"
+        f" a step); tokens in [0, {cfg.vocab_size}), second call equal; "
+        f"decode vs prefill logits max_abs_err={err}; {prof}; decode kernel "
+        f"at n_valid={DECODE_VALID}: kernel_us={1e3 * timed['ms']:.3f} "
+        f"kernel_call_us={1e3 * timed['call_ms']:.3f} bound_us="
+        f"{1e3 * timed['bound_ms']:.4f} ({timed['bound_by']}) plain_us="
+        f"{1e3 * timed['plain_ms']:.3f} sdpa_us="
+        f"{1e3 * timed['library_ms']:.3f}; max_abs_err={kerr}"))
+    return dict(launches=launches["flash_attention"], max_abs_err=kerr,
+                decode=timed)
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = list(pool.map(lambda build: build(),
                              (kc.build_library, gm.build_library,
-                              kc.build_cell_library)))
+                              kc.build_cell_library, fa.build_library)))
     phase("build", f"{', '.join(lib.name for lib in libs)} in "
                    f"{time.perf_counter() - t:.2f}s")
 
@@ -1350,6 +1800,12 @@ def main() -> int:
     check_gossip_round(params, default, state)
     flat = rounds_run(params, default, state)
     del params, default, state
+    attn_worst = check_attention_cases()
+    serve_replay()
+    serve_cfg, serve_params = serve_model()
+    pre = serve_prefill(serve_cfg, serve_params)
+    gen = serve_generate(serve_cfg, serve_params)
+    del serve_params
 
     def merge_record(name, run, line):
         return dict(
@@ -1386,7 +1842,14 @@ def main() -> int:
         launches=flat["launches"],
         max_abs_err=max(flat_worst, flat["max_abs_err"]), ms=flat["ms"],
         plain_ms=flat["plain_ms"], bound_ms=flat["bound_ms"],
-        bound_by=flat["bound_by"], library_ms=flat["library_ms"])]}
+        bound_by=flat["bound_by"], library_ms=flat["library_ms"]), dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:82",
+        launches=pre["launches"] + gen["launches"],
+        max_abs_err=max(attn_worst, pre["max_abs_err"], gen["max_abs_err"]),
+        ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+        bound_by=pre["bound_by"], library_ms=pre["library_ms"])]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,19 +2,31 @@
 ``repro.kernels.ops``).
 
 ``gossip_merge_op`` merges a parameter tree leaf by leaf through
-:func:`repro_torch.kernels.gossip_merge.gossip_merge`: the CUDA kernel on a
-CUDA tensor, its plain version on a CPU tensor. ``attention_op`` and
-``ssd_op`` come with their kernels (ROADMAP §2).
+:func:`repro_torch.kernels.gossip_merge.gossip_merge`, and ``attention_op``
+is the GQA attention of
+:func:`repro_torch.kernels.flash_attention.flash_attention`: each the CUDA
+kernel on a CUDA tensor, its plain version on a CPU tensor. ``ssd_op``
+comes with its kernel (ROADMAP §2).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_merge import gossip_merge
 from repro_torch.tree import tree_items, tree_map
 
-__all__ = ["gossip_merge_op"]
+__all__ = ["attention_op", "gossip_merge_op"]
+
+
+def attention_op(q, k, v, *, causal: bool = True, window: int | None = None):
+    """GQA attention. q ``(B, Sq, H, D)``; k, v ``(B, Skv, Hkv, D)`` with
+    ``H % Hkv == 0``; returns ``(B, Sq, H, D)``. Query head ``h`` reads KV
+    head ``h // (H // Hkv)`` (``repro``'s ``jnp.repeat`` of the KV heads)
+    without a repeated copy. ``repro``'s TPU block sizes and ``interpret``
+    have no counterpart here."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def gossip_merge_op(own_tree, peer_tree, w_own, success):

@@ -1,14 +1,19 @@
-"""Decoder LM parameters over a repeating pattern of LayerSpecs: the
-initialiser (port of ``repro.models.transformer``, ``init_lm`` and its
-helpers) and the carry-over of parameters to and from numpy.
+"""Decoder LM over a repeating pattern of LayerSpecs (port of
+``repro.models.transformer``): the initialiser, the forward pass, the
+decode step and its caches, and the carry-over of parameters to and from
+numpy.
 
 :func:`init_lm` returns ``repro``'s nested dict: the same keys, shapes and
 dtypes, and, from the same key, the same values bit for bit. ``blocks``
 is a tuple with one dict per pattern position, each leaf stacked on a
-leading ``repeats`` axis (``repro`` scans the layers over it). The forward
-pass comes with the trainer. This slice initialises dense-attention
-patterns only; Mamba layers, MoE FFNs, MLA attention, cross-attention and
-encoders raise ``NotImplementedError``.
+leading ``repeats`` axis. ``repro`` scans the layers over that axis; the
+port loops over it in Python (``remat`` does not apply to inference).
+:func:`hidden_forward`, :func:`lm_forward`, :func:`init_cache` and
+:func:`lm_decode_step` serve the dense-attention patterns; Mamba layers,
+MoE FFNs, MLA attention, cross-attention and encoders raise
+``NotImplementedError``. ``act_spec``, a sharding constraint in ``repro``,
+is accepted only as ``None``. :func:`lm_decode_step` writes the KV cache in
+place (``repro`` returns a new one) and returns the same tuple.
 """
 
 from __future__ import annotations
@@ -19,15 +24,16 @@ import torch
 from repro_torch import random as jr
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (DTYPES, embed_init, rmsnorm_init,
-                                       swiglu_init)
+from repro_torch.models.layers import (DTYPES, embed_init, ffn_apply,
+                                       rmsnorm, rmsnorm_init, swiglu_init)
 from repro_torch.tree import tree_map
 
-__all__ = ["init_lm", "params_from_numpy", "params_to_numpy",
+__all__ = ["init_lm", "hidden_forward", "lm_forward", "init_cache",
+           "lm_decode_step", "params_from_numpy", "params_to_numpy",
            "stack_replicas"]
 
 
-def _check_supported(cfg: ArchConfig) -> None:
+def _check_supported(cfg: ArchConfig, what: str = "init_lm") -> None:
     found = [what for what, hit in (
         ("Mamba layers", any(s.kind == "mamba" for s in cfg.pattern)),
         ("MoE FFNs", any(s.moe for s in cfg.pattern)),
@@ -37,9 +43,9 @@ def _check_supported(cfg: ArchConfig) -> None:
     ) if hit]
     if found:
         raise NotImplementedError(
-            f"init_lm: {', '.join(found)} of {cfg.name} come with the "
-            f"model-zoo slice of the port (ROADMAP §1 item 8); this slice "
-            f"initialises dense-attention patterns only")
+            f"{what}: {', '.join(found)} of {cfg.name} come with the "
+            f"model-zoo slice of the port (ROADMAP §1); the port runs "
+            f"dense-attention patterns only")
 
 
 def _init_block(keys, cfg: ArchConfig) -> dict:
@@ -79,6 +85,92 @@ def init_lm(cfg: ArchConfig, key, device=None) -> dict:
         p["unembed"] = (jr.normal(ks[-2], (cfg.d_model, cfg.padded_vocab))
                         * float(np.float32(cfg.d_model ** -0.5))).to(dt)
     return p
+
+
+def _block_forward(p, cfg: ArchConfig, x, window, chunk: int):
+    """One dense-attention block: pre-norm attention, then the pre-norm
+    FFN, each added to the residual stream."""
+    h = rmsnorm(x, p["norm_mix"], cfg.norm_eps)
+    x = x + attn.gqa_forward(p["attn"], cfg, h, causal=True, window=window,
+                             chunk=chunk)
+    if cfg.d_ff > 0:
+        h = rmsnorm(x, p["norm_ffn"], cfg.norm_eps)
+        x = x + ffn_apply(p["ffn"], h, cfg.act)
+    return x
+
+
+def _layers(cfg: ArchConfig, stacked):
+    """``(repeat, pattern position, that layer's tree)`` in execution
+    order: the body of ``repro``'s scan over the repeat axis."""
+    for r in range(cfg.repeats):
+        for i in range(len(cfg.pattern)):
+            yield r, i, tree_map(lambda a: a[r], stacked[i])
+
+
+def _unembed(cfg: ArchConfig, params):
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def hidden_forward(cfg: ArchConfig, params, tokens, *, enc_embeds=None,
+                   window_override: int | None = None, chunk: int = 1024,
+                   act_spec=None):
+    """tokens ``(B, S)`` -> final hidden states ``(B, S, d)``. Returns
+    ``(x, aux)``; ``aux`` (the MoE loss in ``repro``) is a float32 zero."""
+    _check_supported(cfg, "hidden_forward")
+    if act_spec is not None:
+        raise NotImplementedError("act_spec: the port has no sharding yet")
+    x = params["embed"][tokens]
+    window = window_override if window_override is not None else cfg.window
+    for _, _, bp in _layers(cfg, params["blocks"]):
+        x = _block_forward(bp, cfg, x, window, chunk)
+    x = rmsnorm(x, params["norm_f"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_forward(cfg: ArchConfig, params, tokens, *, enc_embeds=None,
+               window_override: int | None = None, chunk: int = 1024,
+               act_spec=None):
+    """tokens ``(B, S)`` -> logits ``(B, S, padded_vocab)``. Returns
+    ``(logits, aux)``."""
+    x, aux = hidden_forward(cfg, params, tokens, enc_embeds=enc_embeds,
+                            window_override=window_override, chunk=chunk,
+                            act_spec=act_spec)
+    return x @ _unembed(cfg, params), aux
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               window_override: int | None = None, device=None):
+    """The decode caches, a tuple over pattern positions of
+    ``dict(kv=dict(k=..., v=...))``, each leaf ``(repeats, batch, L, Hkv,
+    hd)`` zeros (``L = min(max_len, window)``) on ``device`` (default
+    ``cuda``)."""
+    _check_supported(cfg, "init_cache")
+    window = window_override if window_override is not None else cfg.window
+    one = attn.init_kv_cache(cfg, batch, max_len, window=window,
+                             dtype=DTYPES[cfg.dtype], device=device)
+    return tuple(
+        dict(kv={k: torch.zeros((cfg.repeats, *t.shape), dtype=t.dtype,
+                                device=t.device) for k, t in one.items()})
+        for _ in cfg.pattern)
+
+
+def lm_decode_step(cfg: ArchConfig, params, cache, token, index: int, *,
+                   window_override: int | None = None, chunk: int = 2048):
+    """One decode step. token ``(B, 1)``; ``index`` (a host integer): the
+    tokens already cached. Returns ``(logits (B, 1, padded_vocab),
+    cache)``, the cache written in place."""
+    _check_supported(cfg, "lm_decode_step")
+    x = params["embed"][token]
+    for r, i, p in _layers(cfg, params["blocks"]):
+        kv = {k: t[r] for k, t in cache[i]["kv"].items()}
+        h = rmsnorm(x, p["norm_mix"], cfg.norm_eps)
+        h, _ = attn.gqa_decode(p["attn"], cfg, h, kv, index, chunk=chunk)
+        x = x + h
+        if cfg.d_ff > 0:
+            h = rmsnorm(x, p["norm_ffn"], cfg.norm_eps)
+            x = x + ffn_apply(p["ffn"], h, cfg.act)
+    x = rmsnorm(x, params["norm_f"], cfg.norm_eps)
+    return x @ _unembed(cfg, params), cache
 
 
 def params_from_numpy(tree, device=None):
