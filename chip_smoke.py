@@ -93,8 +93,29 @@ Phases (any failure ends the run with a non-zero exit code):
     wall per step, a profile of 8 steps, and the decode kernel at 128
     valid slots beside its bound.
 
+21. ssd-kernel — ``ssd_scan`` vs its plain version in float32 and
+    bfloat16 (tests/test_kernels.py's tolerances) over that file's cases,
+    ragged S, S below the chunk, G = 2, strided and misaligned views of
+    one xBC-like buffer, the final state, and the full prefill shape;
+    float16 and H % G != 0 must raise;
+22. mamba-replay — the reduced mamba2-130m (2 layers, float32 then
+    bfloat16): ``init_lm`` on the card equal to the CPU's bit for bit,
+    ``lm_forward`` logits within tolerance, ``generate`` tokens equal in
+    float32, the CPU's sequence replayed through the card's decode in
+    bfloat16, and in float32 the kernel prefill's final state vs the state
+    after the same inputs through ``mamba_decode``;
+23. mamba-prefill — mamba2-130m at its published widths, all 24 layers,
+    bf16, prefilling 8192 tokens: wall, tokens/s, 24 kernel launches,
+    layer 0's scan vs the plain version, the kernel timed beside its bound
+    and the plain version;
+24. mamba-generate — 8 requests of 64 prompt and 64 new tokens
+    (``max_len`` 256) on that model: no kernel launch (decode is the
+    recurrence), tokens in the vocabulary and equal on a second call,
+    decode logits vs the prefill's, wall per step, a profile of 8 steps.
+
 Phases 9-12 run beside the older ones: 9 after 4, 10 after 5, 11 and 12
-after 7; 13 runs after 4, 14-16 after the others, and 17-20 last.
+after 7; 13 runs after 4, 14-16 after the others, then 17-20, and 21-24
+last.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -129,8 +150,12 @@ from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gossip_merge as gm  # noqa: E402
+from repro_torch.kernels import ssd_scan as ks  # noqa: E402
 from repro_torch.models.attention import gqa_qkv  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.models.mamba import (init_mamba_cache,  # noqa: E402
+                                      mamba_decode, mamba_forward,
+                                      mamba_scan_inputs)
 from repro_torch.models.transformer import (  # noqa: E402
     init_cache, init_lm, lm_forward, params_from_numpy, params_to_numpy,
     stack_replicas)
@@ -161,11 +186,11 @@ LEARN_TOL = dict(test_acc=(0.0, 2e-3), test_acc_holders=(0.0, 2e-3),
                  learn_obs=(1e-5, 0.0), theta_var=(1e-3, 1e-7))
 KERNELS = (kc.pairwise_contacts, gm.gossip_merge_rows,
            gm.gossip_merge_rows_scaled, kc.cell_close_words, gm.gossip_merge,
-           fa.flash_attention)
+           fa.flash_attention, ks.ssd_scan)
 #: Kernel launch counts of a dense run without learning, per slot.
 DENSE_ONLY = dict(pairwise_contacts=1, gossip_merge_rows=0,
                   gossip_merge_rows_scaled=0, cell_close_words=0,
-                  gossip_merge=0, flash_attention=0)
+                  gossip_merge=0, flash_attention=0, ssd_scan=0)
 #: ... and of the serving path: flash_attention only.
 NO_KERNEL = dict(DENSE_ONLY, pairwise_contacts=0)
 #: ... and of a cells run without learning.
@@ -201,6 +226,27 @@ PREFILL_S = 8192
 GEN_B, GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 8, 64, 64, 256
 #: The decode kernel is timed at this many valid cache slots.
 DECODE_VALID = 128
+#: Mamba-2 serving: mamba2-130m (arXiv:2405.21060) at its published widths
+#: and all 24 layers, bf16, with the same two traffic shapes.
+MAMBA_ARCH = "mamba2-130m"
+#: ssd_scan vs its plain version: tests/test_kernels.py:64-66's tolerances
+#: (rtol, atol): float32 sums in other orders, which the exp of the
+#: cumulative sums amplifies; in bfloat16 y is rounded once more.
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 5e-2)}
+#: bfloat16 logits of a Mamba stack, one path against another (rtol,
+#: atol): an ulp of difference at a layer's input comes out of the next
+#: layer's chunked scan several ulps apart (tests/test_torch_mamba.py
+#: measured 0.08-0.21 between the port and repro at 2 layers, where repro's
+#: own bfloat16 logits lie up to 0.50 from its float32 ones).
+MAMBA_DEEP_TOL = (2e-2, 0.5)
+#: mamba2-130m's decode logits against its prefill's, on the bf16 tree
+#: cast to float32 (rtol, atol): the recurrence against the chunked scan
+#: (two algorithms) through 24 layers, measured 2.6e-4 at logits up to
+#: 4.7 on an H100 (PERF.md §6, PR 19). In bf16 the two paths round at
+#: other points (the decode's convolution runs in float32, the prefill's
+#: in bf16) and 24 random layers amplify that: 2.0 at logits up to 4.8
+#: and 0.625 argmax agreement there, so bf16 is reported, not held.
+MAMBA_F32_TOL = (1e-3, 1e-3)
 
 
 _START = time.perf_counter()
@@ -1478,8 +1524,9 @@ def greedy_replay(cfg, gpu, cpu, prompts, n_new: int, max_len: int,
     reset_counts()
     got = ServeEngine(cfg, gpu, **kw).generate(prompts.cuda(), n_new)
     torch.cuda.synchronize()
+    n_attn = cfg.repeats * sum(s.kind == "attn" for s in cfg.pattern)
     want_launches = dict(NO_KERNEL, flash_attention=(
-        prompts.shape[1] + n_new) * cfg.n_layers)
+        prompts.shape[1] + n_new) * n_attn)
     if counts() != want_launches:
         raise AssertionError(f"serve-replay launches {counts()}")
     want = ServeEngine(cfg, cpu, **kw).generate(prompts, n_new)
@@ -1642,9 +1689,11 @@ def serve_prefill(cfg, params, seed: int = 19) -> dict:
                 wall_ms=1e3 * wall, **timed)
 
 
-def profile_decode(params, cfg, prompts, max_len: int, n: int = 8) -> str:
+def profile_decode(params, cfg, prompts, max_len: int, n: int = 8,
+                   kernel: str = "flash_kernel") -> str:
     """Device time, busy share and kernels per step over ``n`` decode
-    steps at the end of a warm cache (``torch.profiler``)."""
+    steps at the end of a warm cache (``torch.profiler``); ``kernel``
+    names the hand kernel whose time is summed."""
     cache = init_cache(cfg, prompts.shape[0], max_len)
     dec = make_decode_step(cfg)
     for t in range(prompts.shape[1]):
@@ -1661,11 +1710,11 @@ def profile_decode(params, cfg, prompts, max_len: int, n: int = 8) -> str:
     if busy_us <= 0:
         return "device time not measured"
     attn_us = sum(e.self_device_time_total for e in dev
-                  if "flash_kernel" in e.key)
+                  if kernel in e.key)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
     return (f"profiled {n} steps at {prompts.shape[1]}+ cached tokens: "
             f"wall_per_step_ms={wall_us / n / 1e3:.4f} device_ms_per_step="
-            f"{busy_us / n / 1e3:.4f} flash_kernel_ms_per_step="
+            f"{busy_us / n / 1e3:.4f} {kernel}_ms_per_step="
             f"{attn_us / n / 1e3:.4f} device_busy_share="
             f"{busy_us / wall_us:.4f} kernels_per_step="
             f"{sum(e.count for e in dev) / n:.1f} top: "
@@ -1742,13 +1791,298 @@ def serve_generate(cfg, params, seed: int = 20) -> dict:
                 decode=timed)
 
 
+# ------------------------------------------------------------- Mamba-2
+
+def ssd_bound_ms(b: int, s: int, h: int, g: int, n: int, p: int, q: int,
+                 dtype) -> tuple[float, str]:
+    """Least time for one ``ssd_scan`` call: x, B, C (in ``dtype``), dt,
+    A and D read once, y written once; per head and chunk of q_c rows the
+    TPU kernel's four products, 2·q_c²·N (C Bᵀ) + 2·q_c²·P + 2·2·q_c·N·P
+    (C·state, the state update), at the card's peak for the inputs' type
+    (bf16: the tensor cores; float32: the CUDA cores)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * item + b * s * h * 4 \
+        + 2 * h * 4
+    rows = [min(q, s - c) for c in range(0, s, q)]
+    flops = b * h * sum(2 * r * r * (n + p) + 4 * r * n * p for r in rows)
+    rate = BF16_FLOPS_S if dtype == torch.bfloat16 else F32_FLOPS_S
+    return roofline_ms(nbytes, flops, rate)
+
+
+def ssd_inputs(gen, b, s, h, g, n, p, dtype, offset: int = 0):
+    """x, dt, A, B, C, D on the card at tests/test_kernels.py's scales; x,
+    B and C cut from one (b, s, offset + h·p + 2·g·n) buffer, as the model
+    cuts them from xBC (``offset`` elements in: a misaligned view)."""
+    width = h * p + 2 * g * n
+    buf = torch.empty((b, s, offset + width), dtype=dtype, device="cuda")
+    buf[..., offset:offset + h * p] = 0.5 * torch.randn(
+        (b, s, h * p), device="cuda", generator=gen)
+    buf[..., offset + h * p:] = 0.3 * torch.randn(
+        (b, s, 2 * g * n), device="cuda", generator=gen)
+    xs, bs, cs = torch.split(buf[..., offset:], [h * p, g * n, g * n], -1)
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn((b, s, h), device="cuda", generator=gen))
+    return (xs.reshape(b, s, h, p), dt,
+            torch.linspace(0.5, 2.0, h, device="cuda"),
+            bs.reshape(b, s, g, n), cs.reshape(b, s, g, n),
+            torch.linspace(0.1, 1.0, h, device="cuda"))
+
+
+def check_ssd_cases() -> float:
+    """``ssd_scan`` against its plain version on the card, float32 and
+    bfloat16, y and the final state, over tests/test_kernels.py's cases,
+    ragged S, S below the chunk, G = 2, views at offsets 0 and 1 of one
+    buffer, and the full prefill shape; inputs the kernel refuses must
+    raise. Returns the largest abs difference of y."""
+    gen = torch.Generator("cuda").manual_seed(21)
+    cases = [(1, 64, 2, 1, 16, 16, 16, 0), (2, 96, 4, 2, 32, 32, 32, 0),
+             (1, 128, 2, 1, 64, 64, 128, 0), (2, 100, 4, 1, 16, 24, 32, 1),
+             (1, 20, 2, 1, 8, 8, 32, 0), (1, 48, 4, 2, 16, 16, 16, 1),
+             (2, 300, 6, 2, 128, 64, 128, 1), (1, 1000, 3, 3, 40, 70, 128, 1),
+             (1, PREFILL_S, 24, 1, 128, 64, 128, 0)]
+    count, worst, st_worst = 0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, g, n, p, q, off in cases:
+            args = ssd_inputs(gen, b, s, h, g, n, p, dtype, off)
+            assert off == 0 or args[0].data_ptr() % 16 != 0
+            y, st = ks.ssd_scan(*args, chunk=q, return_state=True)
+            torch.cuda.synchronize()
+            want, want_st = ks.ssd_scan_ref(*args, chunk=q)
+            what = f"{dtype} {(b, s, h, g, n, p, q)} offset {off}"
+            worst = max(worst, close(y, want, *SSD_TOL[dtype], what))
+            st_worst = max(st_worst, close(st, want_st,
+                                           *SSD_TOL[torch.float32],
+                                           what + " state"))
+            if not torch.equal(ks.ssd_scan(*args, chunk=q), y):
+                raise AssertionError(f"{what}: y differs without the state")
+            count += 1
+            del args, y, st, want, want_st
+    refused = 0
+    for dtype, h, g in ((torch.float16, 4, 1), (torch.float32, 4, 3)):
+        x = torch.zeros((1, 8, h, 8), dtype=dtype, device="cuda")
+        bm = torch.zeros((1, 8, g, 8), dtype=dtype, device="cuda")
+        v = torch.zeros((h,), device="cuda")
+        try:
+            ks.ssd_scan(x, torch.zeros((1, 8, h), device="cuda"), v, bm, bm,
+                        v, chunk=4)
+        except ValueError:
+            refused += 1
+    if refused != 2:
+        raise AssertionError("ssd_scan took float16 or H % G != 0")
+    torch.cuda.empty_cache()
+    phase("ssd-kernel", (
+        f"{count} cases within tests/test_kernels.py's tolerances (float32 "
+        f"1e-4, bfloat16 5e-2): its three cases, ragged S (100, 300, 1000), "
+        f"S < Q, G = 2 and 3, N up to 128, P up to 70, views of one xBC-like "
+        f"buffer at offsets 0 and 1 (misaligned), the prefill shape (1, "
+        f"{PREFILL_S}, 24, 1, 128, 64, Q = 128); float16 and H % G != 0 "
+        f"raised; max_abs_err={worst}, final state max_abs_err={st_worst}"))
+    return worst
+
+
+def mamba_replay(seed: int = 5) -> None:
+    """The reduced mamba2-130m (2 layers) on the card against the same
+    calls on the CPU, float32 then bfloat16: ``init_lm`` bit for bit,
+    ``lm_forward`` logits over 80 tokens (5 chunks), ``generate``, and in
+    float32 layer 0's kernel prefill state vs ``mamba_decode``'s."""
+    notes = []
+    with no_tf32():
+        for dtype in ("float32", "bfloat16"):
+            cfg = reduced(get_arch_config(MAMBA_ARCH), n_layers=2,
+                          dtype=dtype)
+            cpu = init_lm(cfg, jr.PRNGKey(seed), device="cpu")
+            card = init_lm(cfg, jr.PRNGKey(seed))
+            for (path, c), (_, g) in zip(tree_items(cpu), tree_items(card)):
+                if not torch.equal(leaf_bits(c), leaf_bits(g.cpu())):
+                    raise AssertionError(f"init_lm card != CPU at {path}")
+            gpu = params_from_numpy(params_to_numpy(cpu))
+            rng = np.random.default_rng(seed)
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 80)))
+            reset_counts()
+            lg = lm_forward(cfg, gpu, tok.cuda())[0]
+            torch.cuda.synchronize()
+            if counts() != dict(NO_KERNEL, ssd_scan=cfg.n_layers):
+                raise AssertionError(f"lm_forward launches {counts()}")
+            tol = SERVE_TOL[dtype] if dtype == "float32" else MAMBA_DEEP_TOL
+            err = close(lg.cpu(), lm_forward(cfg, cpu, tok)[0], *tol,
+                        f"{dtype} lm_forward")
+            prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                    (3, 5)))
+            gen = greedy_replay(cfg, gpu, cpu, prompts, 8, 32, None,
+                                SERVE_TOL[dtype])
+            note = (f"{dtype}: init_lm bit for bit; lm_forward "
+                    f"max_abs_err={err}; generate 8: {gen}")
+            if dtype == "float32":
+                p0 = tree_map(lambda a: a[0], gpu["blocks"][0])["mamba"]
+                u = torch.randn((2, 40, cfg.d_model), device="cuda",
+                                generator=torch.Generator("cuda").manual_seed(
+                                    seed))
+                reset_counts()
+                _, st = mamba_forward(p0, cfg, u, return_state=True)
+                torch.cuda.synchronize()
+                if counts() != dict(NO_KERNEL, ssd_scan=1):
+                    raise AssertionError(f"mamba_forward launches {counts()}")
+                cache = init_mamba_cache(cfg, 2, torch.float32)
+                for t in range(u.shape[1]):
+                    mamba_decode(p0, cfg, u[:, t:t + 1], cache)
+                serr = close(st, cache["state"], *SERVE_TOL["float32"],
+                             "prefill state vs decode state")
+                note += (f"; layer 0's kernel prefill state (40 tokens) vs "
+                         f"40 decode steps max_abs_err={serr}")
+            notes.append(note)
+    phase("mamba-replay", (
+        f"reduced {MAMBA_ARCH} (2 layers), card (kernel) vs CPU (plain "
+        f"path), logits tolerance float32 {SERVE_TOL['float32']}, bfloat16 "
+        f"forward {MAMBA_DEEP_TOL} and decode {SERVE_TOL['bfloat16']}: "
+        + "; ".join(notes)))
+
+
+def mamba_model():
+    """mamba2-130m at its published widths, all 24 layers, bf16:
+    ``init_lm`` from key 0 on the card."""
+    cfg = get_arch_config(MAMBA_ARCH)
+    t = time.perf_counter()
+    params = init_lm(cfg, jr.PRNGKey(0))
+    torch.cuda.synchronize()
+    n = sum(v.numel() for _, v in tree_items(params))
+    phase("mamba-init", (
+        f"{MAMBA_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, N {cfg.ssm_state}, "
+        f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, {cfg.dtype}: "
+        f"{n} parameters in {time.perf_counter() - t:.2f}s"))
+    return cfg, params
+
+
+def mamba_prefill(cfg, params, seed: int = 22) -> dict:
+    """``make_prefill_step`` over B = 1, S = 8192 tokens (64 chunks):
+    wall, tokens/s, the kernel's launches (one a layer), layer 0's scan
+    held against the plain version on its own inputs, and the kernel
+    timed there (a CUDA graph) beside its bound and the plain version."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, PREFILL_S))).cuda()
+    prefill = make_prefill_step(cfg)
+    prefill(params, dict(tokens=tokens[:, :256]))         # warm-up
+    reset_counts()
+    t = time.perf_counter()
+    logits = prefill(params, dict(tokens=tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = counts()
+    if launches != dict(NO_KERNEL, ssd_scan=cfg.n_layers):
+        raise AssertionError(f"mamba-prefill launches {launches}")
+    if tuple(logits.shape) != (1, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("mamba-prefill logits not finite or misshapen")
+    layer0 = tree_map(lambda a: a[0], params["blocks"][0])
+    h = rmsnorm(params["embed"][tokens], layer0["norm_mix"], cfg.norm_eps)
+    _, x, dt, a, bm, cm = mamba_scan_inputs(layer0["mamba"], cfg, h)
+    args = (x, dt, a, bm, cm, layer0["mamba"]["D"])
+    q = cfg.ssm_chunk
+    got = ks.ssd_scan(*args, chunk=q)
+    want, _ = ks.ssd_scan_ref(*args, chunk=q)
+    err = close(got, want, *SSD_TOL[torch.bfloat16], "layer 0 prefill scan")
+    del got, want, h
+    bound_ms, bound_by = ssd_bound_ms(1, PREFILL_S, cfg.ssm_heads,
+                                      cfg.ssm_groups, cfg.ssm_state,
+                                      cfg.ssm_head_dim, q, x.dtype)
+    ms = device_ms(lambda: ks.ssd_scan(*args, chunk=q), per_graph=5,
+                   replays=4)
+    call = call_ms(lambda: ks.ssd_scan(*args, chunk=q), reps=10, warm=1)
+    plain = call_ms(lambda: ks.ssd_scan_ref(*args, chunk=q), reps=3,
+                    warm=1)
+    del args, x, dt, bm, cm
+    torch.cuda.empty_cache()
+    phase("mamba-prefill", (
+        f"{MAMBA_ARCH} at published widths, all {cfg.n_layers} layers, "
+        f"bf16, B=1 S={PREFILL_S} ({PREFILL_S // q} chunks of {q}): wall "
+        f"{1e3 * wall:.3f}ms, {PREFILL_S / wall:.1f} tokens/s; launches "
+        f"{launches['ssd_scan']}; logits finite; layer 0 scan vs plain "
+        f"max_abs_err={err}; kernel_ms={ms:.4f} kernel_call_ms={call:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) plain_ms={plain:.4f}"))
+    return dict(launches=launches["ssd_scan"], max_abs_err=err, ms=ms,
+                call_ms=call, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=bound_by, wall_ms=1e3 * wall)
+
+
+def mamba_generate(cfg, params, seed: int = 23) -> dict:
+    """``ServeEngine.generate`` at full width: 8 requests, 64-token
+    prompts, 64 new tokens, ``max_len`` 256 (128 decode steps, no kernel:
+    a Mamba decode step is the recurrence). Tokens in the vocabulary, a
+    second call equal, the decode logits at the last prompt position
+    against ``make_prefill_step``'s (which runs the kernel), held in
+    float32 on the tree cast to float32 and reported in bf16; wall per
+    step and a profile of 8 steps."""
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT))).cuda()
+    engine = ServeEngine(cfg, params, max_len=GEN_MAX_LEN)
+    steps = GEN_PROMPT + GEN_NEW
+    reset_counts()
+    t = time.perf_counter()
+    first = engine.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t
+    launches = counts()
+    if launches != NO_KERNEL:
+        raise AssertionError(f"mamba-generate launches {launches}")
+    t = time.perf_counter()
+    second = engine.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t
+    if tuple(first.shape) != (GEN_B, GEN_NEW) or not (
+            0 <= int(first.min()) and int(first.max()) < cfg.vocab_size):
+        raise AssertionError("mamba-generate tokens out of the vocabulary")
+    if not torch.equal(first, second):
+        raise AssertionError("mamba-generate: a second call differs")
+    diffs = {}
+    with no_tf32():
+        for c, p in ((cfg, params), (cfg.replace(dtype="float32"),
+                                     tree_map(lambda a: a.float(), params))):
+            cache = init_cache(c, GEN_B, GEN_MAX_LEN)
+            dec = make_decode_step(c)
+            for i in range(GEN_PROMPT):
+                lg, cache = dec(p, cache, prompts[:, i:i + 1], i)
+            reset_counts()
+            pre = make_prefill_step(c)(p, dict(tokens=prompts))
+            torch.cuda.synchronize()
+            if counts() != dict(NO_KERNEL, ssd_scan=c.n_layers):
+                raise AssertionError(f"mamba-generate prefill launches "
+                                     f"{counts()}")
+            a, b = lg[:, 0].float(), pre.float()
+            diffs[c.dtype] = (
+                float((a - b).abs().max()), float((a - b).norm() / b.norm()),
+                float((a[:, :c.vocab_size].argmax(-1) == b[
+                    :, :c.vocab_size].argmax(-1)).float().mean()))
+            if c.dtype == "float32":
+                err = close(a, b, *MAMBA_F32_TOL, "float32 decode vs "
+                            "prefill logits at the last prompt position")
+            del cache, p
+    prof = profile_decode(params, cfg, prompts, GEN_MAX_LEN,
+                          kernel="ssd_kernel")
+    per_step = (wall1 + wall2) / 2 / steps
+    phase("mamba-generate", (
+        f"B={GEN_B}, prompt {GEN_PROMPT}, {GEN_NEW} new, max_len "
+        f"{GEN_MAX_LEN}: wall {1e3 * wall1:.3f} / {1e3 * wall2:.3f}ms "
+        f"(first / second call), {1e3 * per_step:.4f}ms per decode step, "
+        f"{GEN_B * GEN_NEW / wall2:.1f} new tokens/s (second call); launches "
+        f"{launches['ssd_scan']} (decode is the recurrence); tokens in [0, "
+        f"{cfg.vocab_size}), second call equal; decode vs prefill logits at "
+        f"the last prompt position (max abs, relative L2, argmax agreement): "
+        f"float32 {diffs['float32']} within {MAMBA_F32_TOL}, bfloat16 "
+        f"{diffs['bfloat16']} (reported); {prof}"))
+    return dict(launches=launches["ssd_scan"], max_abs_err=err,
+                wall_ms_per_step=1e3 * per_step)
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         libs = list(pool.map(lambda build: build(),
                              (kc.build_library, gm.build_library,
-                              kc.build_cell_library, fa.build_library)))
+                              kc.build_cell_library, fa.build_library,
+                              ks.build_library)))
     phase("build", f"{', '.join(lib.name for lib in libs)} in "
                    f"{time.perf_counter() - t:.2f}s")
 
@@ -1806,6 +2140,12 @@ def main() -> int:
     pre = serve_prefill(serve_cfg, serve_params)
     gen = serve_generate(serve_cfg, serve_params)
     del serve_params
+    ssd_worst = check_ssd_cases()
+    mamba_replay()
+    mamba_cfg, mamba_params = mamba_model()
+    mpre = mamba_prefill(mamba_cfg, mamba_params)
+    mgen = mamba_generate(mamba_cfg, mamba_params)
+    del mamba_params
 
     def merge_record(name, run, line):
         return dict(
@@ -1849,7 +2189,14 @@ def main() -> int:
         launches=pre["launches"] + gen["launches"],
         max_abs_err=max(attn_worst, pre["max_abs_err"], gen["max_abs_err"]),
         ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
-        bound_by=pre["bound_by"], library_ms=pre["library_ms"])]}
+        bound_by=pre["bound_by"], library_ms=pre["library_ms"]), dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:91",
+        launches=mpre["launches"] + mgen["launches"],
+        max_abs_err=max(ssd_worst, mpre["max_abs_err"]), ms=mpre["ms"],
+        plain_ms=mpre["plain_ms"], bound_ms=mpre["bound_ms"],
+        bound_by=mpre["bound_by"], library_ms=None)]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

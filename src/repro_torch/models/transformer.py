@@ -9,11 +9,12 @@ is a tuple with one dict per pattern position, each leaf stacked on a
 leading ``repeats`` axis. ``repro`` scans the layers over that axis; the
 port loops over it in Python (``remat`` does not apply to inference).
 :func:`hidden_forward`, :func:`lm_forward`, :func:`init_cache` and
-:func:`lm_decode_step` serve the dense-attention patterns; Mamba layers,
-MoE FFNs, MLA attention, cross-attention and encoders raise
-``NotImplementedError``. ``act_spec``, a sharding constraint in ``repro``,
-is accepted only as ``None``. :func:`lm_decode_step` writes the KV cache in
-place (``repro`` returns a new one) and returns the same tuple.
+:func:`lm_decode_step` serve patterns of GQA attention and Mamba-2 layers
+(dense FFNs or none); MoE FFNs, MLA attention, cross-attention and
+encoders raise ``NotImplementedError``. ``act_spec``, a sharding constraint
+in ``repro``, is accepted only as ``None``. :func:`lm_decode_step` writes
+the KV and SSM caches in place (``repro`` returns new ones) and returns
+the same tuple.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models.layers import (DTYPES, embed_init, ffn_apply,
                                        rmsnorm, rmsnorm_init, swiglu_init)
 from repro_torch.tree import tree_map
@@ -35,7 +37,6 @@ __all__ = ["init_lm", "hidden_forward", "lm_forward", "init_cache",
 
 def _check_supported(cfg: ArchConfig, what: str = "init_lm") -> None:
     found = [what for what, hit in (
-        ("Mamba layers", any(s.kind == "mamba" for s in cfg.pattern)),
         ("MoE FFNs", any(s.moe for s in cfg.pattern)),
         ("MLA attention", cfg.is_mla),
         ("cross-attention", any(s.cross_attn for s in cfg.pattern)),
@@ -45,19 +46,22 @@ def _check_supported(cfg: ArchConfig, what: str = "init_lm") -> None:
         raise NotImplementedError(
             f"{what}: {', '.join(found)} of {cfg.name} come with the "
             f"model-zoo slice of the port (ROADMAP §1); the port runs "
-            f"dense-attention patterns only")
+            f"GQA attention and Mamba-2 layers with dense FFNs only")
 
 
-def _init_block(keys, cfg: ArchConfig) -> dict:
-    """A dense-attention block's parameters for each of the ``(n, 2)``
-    keys (``repro``'s ``jax.vmap`` of ``_init_block`` over split keys),
-    ``(n, ...)``. Of its six keys the block uses the first (attention) and
-    the third (FFN), as ``repro``'s does for this layer kind."""
+def _init_block(keys, cfg: ArchConfig, spec: LayerSpec) -> dict:
+    """A block's parameters for each of the ``(n, 2)`` keys (``repro``'s
+    ``jax.vmap`` of ``_init_block`` over split keys), ``(n, ...)``. Of its
+    six keys the block uses the first (attention or Mamba mixer) and the
+    third (FFN), as ``repro``'s does for these layer kinds."""
     dt = DTYPES[cfg.dtype]
     lead = tuple(keys.shape[:-1])
     ks = jr.split(keys, 6)
     p = dict(norm_mix=rmsnorm_init(cfg.d_model, dt, lead, keys.device))
-    p["attn"] = attn.init_gqa(ks[..., 0, :], cfg)
+    if spec.kind == "attn":
+        p["attn"] = attn.init_gqa(ks[..., 0, :], cfg)
+    else:
+        p["mamba"] = mam.init_mamba(ks[..., 0, :], cfg)
     if cfg.d_ff > 0:
         p["norm_ffn"] = rmsnorm_init(cfg.d_model, dt, lead, keys.device)
         p["ffn"] = swiglu_init(ks[..., 2, :], cfg.d_model, cfg.d_ff, dt,
@@ -65,8 +69,8 @@ def _init_block(keys, cfg: ArchConfig) -> dict:
     return p
 
 
-def _init_stack(key, cfg: ArchConfig, n: int) -> dict:
-    return _init_block(jr.split(key, n), cfg)
+def _init_stack(key, cfg: ArchConfig, spec: LayerSpec, n: int) -> dict:
+    return _init_block(jr.split(key, n), cfg, spec)
 
 
 def init_lm(cfg: ArchConfig, key, device=None) -> dict:
@@ -78,8 +82,8 @@ def init_lm(cfg: ArchConfig, key, device=None) -> dict:
     dt = DTYPES[cfg.dtype]
     ks = jr.split(key, 4 + len(cfg.pattern))
     p = dict(embed=embed_init(ks[0], cfg.padded_vocab, cfg.d_model, dt))
-    p["blocks"] = tuple(_init_stack(ks[1 + i], cfg, cfg.repeats)
-                        for i in range(len(cfg.pattern)))
+    p["blocks"] = tuple(_init_stack(ks[1 + i], cfg, spec, cfg.repeats)
+                        for i, spec in enumerate(cfg.pattern))
     p["norm_f"] = rmsnorm_init(cfg.d_model, dt, device=device)
     if not cfg.tie_embeddings:
         p["unembed"] = (jr.normal(ks[-2], (cfg.d_model, cfg.padded_vocab))
@@ -87,12 +91,16 @@ def init_lm(cfg: ArchConfig, key, device=None) -> dict:
     return p
 
 
-def _block_forward(p, cfg: ArchConfig, x, window, chunk: int):
-    """One dense-attention block: pre-norm attention, then the pre-norm
-    FFN, each added to the residual stream."""
+def _block_forward(p, cfg: ArchConfig, spec: LayerSpec, x, window,
+                   chunk: int):
+    """One block: the pre-norm mixer (attention or Mamba), then the
+    pre-norm FFN where there is one, each added to the residual stream."""
     h = rmsnorm(x, p["norm_mix"], cfg.norm_eps)
-    x = x + attn.gqa_forward(p["attn"], cfg, h, causal=True, window=window,
-                             chunk=chunk)
+    if spec.kind == "attn":
+        x = x + attn.gqa_forward(p["attn"], cfg, h, causal=True,
+                                 window=window, chunk=chunk)
+    else:
+        x = x + mam.mamba_forward(p["mamba"], cfg, h)
     if cfg.d_ff > 0:
         h = rmsnorm(x, p["norm_ffn"], cfg.norm_eps)
         x = x + ffn_apply(p["ffn"], h, cfg.act)
@@ -121,8 +129,8 @@ def hidden_forward(cfg: ArchConfig, params, tokens, *, enc_embeds=None,
         raise NotImplementedError("act_spec: the port has no sharding yet")
     x = params["embed"][tokens]
     window = window_override if window_override is not None else cfg.window
-    for _, _, bp in _layers(cfg, params["blocks"]):
-        x = _block_forward(bp, cfg, x, window, chunk)
+    for _, i, bp in _layers(cfg, params["blocks"]):
+        x = _block_forward(bp, cfg, cfg.pattern[i], x, window, chunk)
     x = rmsnorm(x, params["norm_f"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -140,18 +148,26 @@ def lm_forward(cfg: ArchConfig, params, tokens, *, enc_embeds=None,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                window_override: int | None = None, device=None):
-    """The decode caches, a tuple over pattern positions of
-    ``dict(kv=dict(k=..., v=...))``, each leaf ``(repeats, batch, L, Hkv,
-    hd)`` zeros (``L = min(max_len, window)``) on ``device`` (default
-    ``cuda``)."""
+    """The decode caches, a tuple over pattern positions of zeros on
+    ``device`` (default ``cuda``), each leaf with a leading ``repeats``
+    axis: ``dict(kv=dict(k=..., v=...))`` for attention, each ``(repeats,
+    batch, L, Hkv, hd)`` (``L = min(max_len, window)``);
+    ``dict(ssm=dict(state=..., conv=...))`` for Mamba, ``(repeats, batch,
+    H, N, P)`` float32 and ``(repeats, batch, K-1, conv_ch)``."""
     _check_supported(cfg, "init_cache")
     window = window_override if window_override is not None else cfg.window
-    one = attn.init_kv_cache(cfg, batch, max_len, window=window,
-                             dtype=DTYPES[cfg.dtype], device=device)
-    return tuple(
-        dict(kv={k: torch.zeros((cfg.repeats, *t.shape), dtype=t.dtype,
-                                device=t.device) for k, t in one.items()})
-        for _ in cfg.pattern)
+    dt = DTYPES[cfg.dtype]
+    caches = []
+    for spec in cfg.pattern:
+        if spec.kind == "attn":
+            name, one = "kv", attn.init_kv_cache(
+                cfg, batch, max_len, window=window, dtype=dt, device=device)
+        else:
+            name, one = "ssm", mam.init_mamba_cache(cfg, batch, dt, device)
+        caches.append({name: {k: torch.zeros((cfg.repeats, *t.shape),
+                                             dtype=t.dtype, device=t.device)
+                              for k, t in one.items()}})
+    return tuple(caches)
 
 
 def lm_decode_step(cfg: ArchConfig, params, cache, token, index: int, *,
@@ -162,9 +178,13 @@ def lm_decode_step(cfg: ArchConfig, params, cache, token, index: int, *,
     _check_supported(cfg, "lm_decode_step")
     x = params["embed"][token]
     for r, i, p in _layers(cfg, params["blocks"]):
-        kv = {k: t[r] for k, t in cache[i]["kv"].items()}
         h = rmsnorm(x, p["norm_mix"], cfg.norm_eps)
-        h, _ = attn.gqa_decode(p["attn"], cfg, h, kv, index, chunk=chunk)
+        if cfg.pattern[i].kind == "attn":
+            kv = {k: t[r] for k, t in cache[i]["kv"].items()}
+            h, _ = attn.gqa_decode(p["attn"], cfg, h, kv, index, chunk=chunk)
+        else:
+            ssm = {k: t[r] for k, t in cache[i]["ssm"].items()}
+            h, _ = mam.mamba_decode(p["mamba"], cfg, h, ssm)
         x = x + h
         if cfg.d_ff > 0:
             h = rmsnorm(x, p["norm_ffn"], cfg.norm_eps)

@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fma32", "log1p32", "erfinv32", "row_sum32", "mean32"]
+__all__ = ["fma32", "log32", "log1p32", "erfinv32", "row_sum32", "mean32",
+           "linspace32"]
 
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -64,8 +65,11 @@ _LOG1P_NUM = tuple(_f32(v) for v in (
 _FLT_MIN = _f32(1.17549435e-38)
 
 
-def _log32(a: torch.Tensor) -> torch.Tensor:
-    """float32 ``log(a)`` as XLA's CPU backend computes it."""
+def log32(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``log(a)`` bit for bit as jitted (or eager) ``jnp.log``
+    computes it on the CPU (``torch.log`` differs on about 0.7% of normal
+    inputs). Written in float32 and :func:`fma32`, so the card computes
+    the same bits."""
     m = torch.clamp(a, min=_FLT_MIN)
     bits = m.view(torch.int32)
     mant = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
@@ -91,7 +95,7 @@ def log1p32(x: torch.Tensor) -> torch.Tensor:
     """float32 ``log1p(x)`` bit for bit as jitted XLA computes it on the
     CPU: a rational approximation for ``|x| < sqrt(2) - 1``, else
     ``log(1 + x)``, each multiply-add contracted as XLA's loop does."""
-    big = _log32(x + 1.0)
+    big = log32(x + 1.0)
     x2 = x * x
     den = x + _LOG1P_DEN[0]
     for c in _LOG1P_DEN[1:]:
@@ -163,3 +167,24 @@ def mean32(x: torch.Tensor) -> torch.Tensor:
     """Mean over the last axis as jitted XLA takes it: the sum times the
     float32-rounded ``1/n`` (not the sum divided by ``n``)."""
     return x.sum(-1) * float(np.float32(1.0 / x.shape[-1]))
+
+
+def linspace32(start: float, stop: float, n: int,
+               device=None) -> torch.Tensor:
+    """float32 ``jnp.linspace(start, stop, n)`` as JAX computes it when
+    called (``start`` and ``stop`` traced into its jitted body): with
+    ``r = float32(1 / (n - 1))``, element ``i < n - 1`` is ``fma(i, stop *
+    r, start * (1 - i * r))``, each product rounded to float32, and the
+    last is ``stop``. ``torch.linspace`` differs at n = 16 and 24. Pinned
+    for n <= 352: above that XLA's CPU loop contracts ``1 - i * r`` too,
+    on some lengths."""
+    start, stop = _f32(start), _f32(stop)
+    if n <= 1:
+        return torch.full((max(n, 0),), start, dtype=torch.float32,
+                          device=device)
+    r = _f32(np.float32(1.0) / np.float32(n - 1))
+    i = torch.arange(n - 1, dtype=torch.float32, device=device)
+    head = fma32(i, _f32(np.float32(stop) * np.float32(r)),
+                 (1.0 - i * r) * start)
+    return torch.cat([head, torch.full((1,), stop, dtype=torch.float32,
+                                       device=device)])

@@ -1,13 +1,15 @@
-"""Serving runtime: batched prefill and one-token decode with KV caches
-(port of ``repro.serve.engine``).
+"""Serving runtime: batched prefill and one-token decode with KV and SSM
+caches (port of ``repro.serve.engine``).
 
 ``make_prefill_step`` and ``make_decode_step`` return the functions that
 ``repro`` jits; the port calls them eagerly (no ``jit``, no CUDA graph).
 ``ServeEngine`` is the host-side greedy loop: the prompt goes through the
 decode path token by token, as in ``repro``, then ``n_new`` tokens are
 chosen by argmax over the real vocabulary. On CUDA parameters every
-attention runs the ``flash_attention`` kernel; on CPU parameters the plain
-path. Dense-attention models only (see :mod:`repro_torch.models.transformer`).
+attention runs the ``flash_attention`` kernel and every Mamba layer of a
+prefill the ``ssd_scan`` kernel (a Mamba decode step is the plain
+recurrence); on CPU parameters the plain path. Models of GQA attention
+and Mamba-2 layers (see :mod:`repro_torch.models.transformer`).
 """
 
 from __future__ import annotations

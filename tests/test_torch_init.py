@@ -134,10 +134,10 @@ def test_full_width_tree_of_the_gossip_configuration():
 
 
 @pytest.mark.parametrize("name,what", [
-    ("mamba2-130m", "Mamba layers"), ("granite-moe-3b-a800m", "MoE FFNs"),
+    ("granite-moe-3b-a800m", "MoE FFNs"),
     ("deepseek-v2-lite-16b", "MLA attention"),
     ("llama-3.2-vision-11b", "cross-attention"),
-    ("whisper-small", "an encoder"), ("jamba-v0.1-52b", "Mamba layers")])
+    ("whisper-small", "an encoder"), ("jamba-v0.1-52b", "MoE FFNs")])
 def test_other_layer_kinds_raise(name, what):
     cfg = base.reduced(configs.get_arch_config(name))
     with pytest.raises(NotImplementedError, match=what) as err:

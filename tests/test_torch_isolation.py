@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.models.transformer", "repro_torch.kernels.ops",
                  "repro_torch.core.gossip", "repro_torch.tree",
                  "repro_torch.kernels.flash_attention", "repro_torch.serve",
-                 "repro_torch.serve.engine"):
+                 "repro_torch.serve.engine", "repro_torch.models.mamba",
+                 "repro_torch.kernels.ssd_scan"):
         assert name in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -220,7 +220,7 @@ def test_init_cache_shapes_and_default_device():
 
 
 @pytest.mark.parametrize("name,what", [
-    ("mamba2-130m", "Mamba layers"), ("granite-moe-3b-a800m", "MoE FFNs"),
+    ("granite-moe-3b-a800m", "MoE FFNs"),
     ("deepseek-v2-lite-16b", "MLA attention"),
     ("llama-3.2-vision-11b", "cross-attention")])
 def test_other_layer_kinds_raise(name, what):
