@@ -73,25 +73,30 @@ Phases (any failure ends the run with a non-zero exit code):
 
 17. attention-kernel — ``flash_attention`` vs its plain version in
     float32 and bfloat16 (tests/test_kernels.py's tolerances) over D in
-    {64, 67, 100, 120, 128}, G in {1, 4}, causal on/off, window in {None,
-    96, 4096}, Sq = Skv, Sq < Skv and Sq = 1 over ragged lengths, strided
-    and misaligned views, S = 5000 and the prefill shape; float16 and
-    D = 129 must raise;
+    {64, 67, 100, 120, 128}, G in {1, 4, 8}, causal on/off, window in
+    {None, 96, 4096}, Sq = Skv, Sq < Skv and Sq = 1 over Skv in {1, 5, 37,
+    129, 300, 4096}, strided ring views and views one element off, S =
+    5000 and the prefill shape, each case taking the form the shape and
+    dtype give (``mma``: bf16 Sq > 1; ``simt``: float32 Sq > 1;
+    ``decode``: Sq = 1) as ``flash_attention.forms`` records, each also
+    within a relative L2 difference (``ATTN_REL``), q sharpened in the
+    long-key cases; float16 and D = 129 must raise;
 18. serve-replay — the reduced h2o-danube-3-4b (2 layers, float32 then
     bfloat16) on the card against the same calls on the CPU: ``lm_forward``
     logits within tolerance, ``generate`` tokens equal in float32 (also
     over a ring of 8 that wraps); in bfloat16 the CPU's sequence replayed
     through the card's decode, the same token wherever the choice is
-    clear;
+    clear; the forms launched as the shapes say;
 19. serve-prefill — h2o-danube-3-4b at its published widths (2 layers,
-    bf16) prefilling 8192 tokens: wall, tokens/s, 2 kernel launches, layer
-    0's attention vs the plain version, the kernel timed beside its bound,
-    the plain version and SDPA;
+    bf16) prefilling 8192 tokens: wall, tokens/s, 2 launches of the mma
+    form, layer 0's attention vs the plain version (``ATTN_TOL`` and
+    ``ATTN_REL``), the kernel timed beside its bound, the plain version
+    and SDPA;
 20. serve-generate — the serving main path: 8 requests of 64 prompt and
-    64 new tokens (``max_len`` 256): 2 launches a step, tokens in the
-    vocabulary and equal on a second call, decode logits vs the prefill's,
-    wall per step, a profile of 8 steps, and the decode kernel at 128
-    valid slots beside its bound.
+    64 new tokens (``max_len`` 256): 2 launches a step, all of the decode
+    form, tokens in the vocabulary and equal on a second call, decode
+    logits vs the prefill's, wall per step, a profile of 8 steps, and the
+    decode kernel at 128 and 4096 valid slots beside its bound and SDPA.
 
 21. ssd-kernel — ``ssd_scan`` vs its plain version in float32 and
     bfloat16 (tests/test_kernels.py's tolerances) over that file's cases,
@@ -213,6 +218,16 @@ CHECKED_ROUNDS = (10, 11, 12)
 #: tolerances (rtol, atol): float32 sums in other orders; in bfloat16 the
 #: output's rounding can then differ by an ulp (2^-8 relative).
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+#: ... and the output's relative L2 error, ||got - want|| / ||want||, at
+#: most this. Over thousands of keys a flat softmax leaves outputs near
+#: ATTN_TOL's atol, where a 64-key tile dropped or a window edge a tile off
+#: passes it (about 4e-3 of abs change) but moves the relative error by
+#: ~0.1. Float32: sums in other orders, ~1e-6; bfloat16: the output's
+#: rounding and P in bf16, ~2e-3 (the mma form's arithmetic on the CPU).
+ATTN_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+#: q's scale in the long-key cases (k and v: 0.5): scores of standard
+#: deviation ~2, so the softmax is peaked and the outputs well above atol.
+SHARP_Q = 4.0
 #: Serving logits, one path against another (rtol, atol): float32 products
 #: summed in other orders (cuBLAS, the CPU, the kernel); in bfloat16 the
 #: two paths round the residual stream at other points (matrix products of
@@ -224,8 +239,11 @@ SERVE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 0.1)}
 #: then 8 requests of 64 prompt and 64 new tokens.
 PREFILL_S = 8192
 GEN_B, GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 8, 64, 64, 256
-#: The decode kernel is timed at this many valid cache slots.
+#: The decode kernel is timed at this many valid cache slots, and at a
+#: long cache (the window of h2o-danube-3-4b), where one block per (batch,
+#: KV head) leaves half the card idle.
 DECODE_VALID = 128
+DECODE_LONG = 4096
 #: Mamba-2 serving: mamba2-130m (arXiv:2405.21060) at its published widths
 #: and all 24 layers, bf16, with the same two traffic shapes.
 MAMBA_ARCH = "mamba2-130m"
@@ -689,6 +707,15 @@ def reset_counts() -> None:
     torch.cuda.synchronize()
     for k in KERNELS:
         k.launches = 0
+    fa.flash_attention.forms.clear()
+
+
+def attention_forms(what: str, want: dict) -> None:
+    """``flash_attention``'s launches by form since the last reset must be
+    ``want``."""
+    if fa.flash_attention.forms != want:
+        raise AssertionError(f"{what}: flash_attention forms "
+                             f"{fa.flash_attention.forms}, want {want}")
 
 
 def counts() -> dict:
@@ -1425,56 +1452,101 @@ def no_tf32():
          torch.backends.cudnn.allow_tf32) = old
 
 
-def attention_inputs(gen, b, sq, skv, h, hkv, d, dtype):
-    return (0.5 * torch.randn((b, sq, h, d), device="cuda",
-                              generator=gen)).to(dtype), *(
+def attention_inputs(gen, b, sq, skv, h, hkv, d, dtype, q_scale=0.5):
+    return (q_scale * torch.randn((b, sq, h, d), device="cuda",
+                                  generator=gen)).to(dtype), *(
         (0.5 * torch.randn((b, skv, hkv, d), device="cuda",
                            generator=gen)).to(dtype) for _ in range(2))
+
+
+def attention_form(q) -> str:
+    """The form a call must take: ``decode`` for one query position, else
+    ``mma`` in bfloat16 and ``simt`` in float32."""
+    if q.shape[1] == 1:
+        return "decode"
+    return "mma" if q.dtype == torch.bfloat16 else "simt"
+
+
+def attention_close(got, want, what: str) -> tuple[float, float]:
+    """``got`` against ``want`` elementwise within ``ATTN_TOL`` and as a
+    whole within ``ATTN_REL``; returns the max abs and the relative L2
+    difference."""
+    err = close(got, want, *ATTN_TOL[want.dtype], what)
+    g, w = got.double(), want.double()
+    rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    if not rel <= ATTN_REL[want.dtype]:
+        raise AssertionError(f"{what}: relative L2 difference {rel} beyond "
+                             f"{ATTN_REL[want.dtype]}")
+    return err, rel
+
+
+def attention_case(q, k, v, causal: bool, window,
+                   what: str) -> tuple[float, float]:
+    """One kernel call against the plain version on the same inputs, in
+    the form the shape and dtype give; returns the max abs and relative L2
+    differences."""
+    fa.flash_attention.forms.clear()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    attention_forms(what, {attention_form(q): 1})
+    want = fa.flash_attention_ref(q, k.contiguous(), v.contiguous(),
+                                  causal=causal, window=window)
+    torch.cuda.synchronize()
+    return attention_close(got, want, what)
 
 
 def check_attention_cases() -> float:
     """``flash_attention`` against its plain version on the card, float32
     and bfloat16, over D x G x masks x lengths (D = 67, and 100 in
-    bfloat16, take the kernel's single-value loads, the others its 16-byte
-    loads), a strided cache view, a misaligned view, a window that prunes
-    tiles, and the full-width prefill shape; inputs the kernel refuses
-    must raise. Returns the largest abs difference."""
+    bfloat16, take the kernels' single-value loads, the others their
+    16-byte loads), ring-cache views, views one element off, a window that
+    prunes tiles, and the full-width prefill shape (the long-key cases with
+    q at ``SHARP_Q``), each in the form its shape and dtype give, within
+    ``ATTN_TOL`` and ``ATTN_REL``; inputs the kernel refuses must raise.
+    Returns the largest abs difference."""
     gen = torch.Generator("cuda").manual_seed(18)
     masks = [(True, None), (False, None), (True, 96), (True, 4096),
              (False, 96)]
-    lengths = [(2, 200, 200), (1, 37, 300), (3, 1, 1), (2, 1, 129),
-               (2, 1, 300)]
-    count, worst = 0, 0.0
+    # Sq > 1: Skv not a multiple of 64; at G = 1 the causal S = 200 block
+    # has a tile wholly masked for its first warpgroup's rows, and window
+    # 96 leaves the last rows' first visited tile wholly masked. Sq = 1:
+    # Skv = 1 and 5 leave some of the 8 warps' key slices empty.
+    lengths = [(2, 200, 200), (1, 37, 300), (3, 1, 1), (2, 1, 5),
+               (2, 1, 37), (2, 1, 129), (2, 1, 300)]
+    count, worst, worst_rel = 0, 0.0, 0.0
     with no_tf32():
         for dtype, d, g in itertools.product(
                 (torch.float32, torch.bfloat16), (64, 67, 100, 120, 128),
-                (1, 4)):
+                (1, 4, 8)):
             for (causal, window), (b, sq, skv) in itertools.product(
                     masks, lengths):
                 q, k, v = attention_inputs(gen, b, sq, skv, 2 * g, 2, d,
                                            dtype)
-                got = fa.flash_attention(q, k, v, causal=causal,
-                                         window=window)
-                want = fa.flash_attention_ref(q, k, v, causal=causal,
-                                              window=window)
-                torch.cuda.synchronize()
-                worst = max(worst, close(
-                    got, want, *ATTN_TOL[dtype],
+                err, rel = attention_case(
+                    q, k, v, causal, window,
                     f"{dtype} D={d} G={g} causal={causal} window={window} "
-                    f"B={b} Sq={sq} Skv={skv}"))
+                    f"B={b} Sq={sq} Skv={skv}")
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
                 count += 1
         big = [(torch.bfloat16, (1, 37, 5000, 32, 8, 120), None),
                (torch.bfloat16, (1, 5000, 5000, 8, 2, 120), None),
                (torch.float32, (1, 5000, 5000, 8, 8, 64), None),
                (torch.bfloat16, (3, 1, 37, 32, 8, 120), "view"),
+               (torch.float32, (3, 1, 37, 32, 8, 120), "view"),
                (torch.float32, (3, 1, 200, 8, 2, 128), "view"),
+               (torch.bfloat16, (2, 1, 4096, 32, 8, 120), "view"),
+               (torch.float32, (2, 1, 4096, 32, 8, 120), "view"),
                (torch.bfloat16, (2, 70, 70, 8, 2, 120), "offset"),
+               (torch.float32, (2, 70, 70, 8, 2, 120), "offset"),
+               (torch.bfloat16, (2, 1, 70, 8, 2, 120), "offset"),
+               (torch.float32, (2, 1, 70, 8, 2, 120), "offset"),
                (torch.bfloat16, (1, PREFILL_S, PREFILL_S, 32, 8, 120), None)]
         for dtype, (b, sq, skv, h, hkv, d), how in big:
-            q, k, v = attention_inputs(gen, b, sq, skv, h, hkv, d, dtype)
+            q, k, v = attention_inputs(gen, b, sq, skv, h, hkv, d, dtype,
+                                       q_scale=SHARP_Q)
             if how == "view":                 # a ring cache's valid slots
-                ck, cv = (torch.zeros((b, 256, hkv, d), dtype=dtype,
-                                      device="cuda") for _ in range(2))
+                ck, cv = (torch.zeros((b, 2 * skv + 64, hkv, d),
+                                      dtype=dtype, device="cuda")
+                          for _ in range(2))
                 ck[:, :skv], cv[:, :skv] = k, v
                 k, v = ck[:, :skv], cv[:, :skv]
                 assert not k.is_contiguous()
@@ -1482,15 +1554,12 @@ def check_attention_cases() -> float:
                 q, k, v = (placed(x, dtype, 1) for x in (q, k, v))
             causal = how != "view"
             window = 4096 if causal else None
-            got = fa.flash_attention(q, k, v, causal=causal, window=window)
-            want = fa.flash_attention_ref(q, k.contiguous(), v.contiguous(),
-                                          causal=causal, window=window)
-            torch.cuda.synchronize()
-            worst = max(worst, close(got, want, *ATTN_TOL[dtype],
-                                      f"{dtype} {(b, sq, skv, h, hkv, d)} "
-                                      f"{how or ''}"))
+            err, rel = attention_case(
+                q, k, v, causal, window,
+                f"{dtype} {(b, sq, skv, h, hkv, d)} {how or ''}")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
             count += 1
-            del q, k, v, got, want
+            del q, k, v
     refused = 0
     for bad in ((torch.float16, 64), (torch.float32, 129)):
         x = torch.zeros((1, 4, 2, bad[1]), dtype=bad[0], device="cuda")
@@ -1503,13 +1572,17 @@ def check_attention_cases() -> float:
     torch.cuda.empty_cache()
     phase("attention-kernel", (
         f"{count} cases within tests/test_kernels.py's tolerances (float32 "
-        f"2e-5, bfloat16 2e-2): D in {{64, 67, 100, 120, 128}} (67, 100 in "
-        f"bf16 and a view one element off take the single-value loads), G in "
-        f"{{1, 4}}, causal on/off, window in {{None, 96, 4096}}, Sq = Skv, "
-        f"Sq < Skv and Sq = "
-        f"1 over ragged lengths, strided cache views, S = 5000 with the "
-        f"window pruning tiles, the prefill shape (1, {PREFILL_S}, 32/8 "
-        f"heads, 120); float16 and D = 129 raised; max_abs_err={worst}"))
+        f"2e-5, bfloat16 2e-2) and relative L2 {ATTN_REL[torch.float32]} / "
+        f"{ATTN_REL[torch.bfloat16]}, each in its form (mma: bf16 Sq > 1; "
+        f"simt: float32 Sq > 1; decode: Sq = 1): D in {{64, 67, 100, 120, "
+        f"128}} (67, 100 in bf16 and views one element off take the single-value "
+        f"loads), G in {{1, 4, 8}}, causal on/off, window in {{None, 96, "
+        f"4096}}, Sq = Skv, Sq < Skv and Sq = 1 over Skv in {{1, 5, 37, "
+        f"129, 300, 4096}}, ring-cache views in both dtypes, S = 5000 with "
+        f"the window pruning tiles, the prefill shape (1, {PREFILL_S}, 32/8 "
+        f"heads, 120), q at {SHARP_Q} x randn from S = 5000 on; float16 "
+        f"and D = 129 raised; max_abs_err={worst} "
+        f"max_rel_l2={worst_rel}"))
     return worst
 
 
@@ -1529,6 +1602,8 @@ def greedy_replay(cfg, gpu, cpu, prompts, n_new: int, max_len: int,
         prompts.shape[1] + n_new) * n_attn)
     if counts() != want_launches:
         raise AssertionError(f"serve-replay launches {counts()}")
+    n_decode = want_launches["flash_attention"]
+    attention_forms("generate", {"decode": n_decode} if n_decode else {})
     want = ServeEngine(cfg, cpu, **kw).generate(prompts, n_new)
     if got.device.type != "cuda" or got.dtype != torch.int64:
         raise AssertionError(f"generate gave {got.dtype} on {got.device}")
@@ -1581,6 +1656,8 @@ def serve_replay(seed: int = 3) -> None:
             torch.cuda.synchronize()
             if counts() != dict(NO_KERNEL, flash_attention=cfg.n_layers):
                 raise AssertionError(f"lm_forward launches {counts()}")
+            attention_forms(f"{dtype} lm_forward", {
+                "mma" if dtype == "bfloat16" else "simt": cfg.n_layers})
             err = close(lg.cpu(), lm_forward(cfg, cpu, tok, chunk=32)[0],
                          *SERVE_TOL[dtype], f"{dtype} lm_forward")
             prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
@@ -1660,6 +1737,7 @@ def serve_prefill(cfg, params, seed: int = 19) -> dict:
     launches = counts()
     if launches != dict(NO_KERNEL, flash_attention=cfg.n_layers):
         raise AssertionError(f"serve-prefill launches {launches}")
+    attention_forms("serve-prefill", {"mma": cfg.n_layers})
     if tuple(logits.shape) != (1, cfg.padded_vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError("serve-prefill logits not finite or misshapen")
@@ -1667,9 +1745,8 @@ def serve_prefill(cfg, params, seed: int = 19) -> dict:
     h = rmsnorm(params["embed"][tokens], layer0["norm_mix"], cfg.norm_eps)
     q, k, v = gqa_qkv(layer0["attn"], cfg, h)
     got = fa.flash_attention(q, k, v, causal=True, window=cfg.window)
-    err = close(got, fa.flash_attention_ref(q, k, v, causal=True,
-                                             window=cfg.window),
-                 *ATTN_TOL[torch.bfloat16], "layer 0 prefill attention")
+    err, rel = attention_close(got, fa.flash_attention_ref(
+        q, k, v, causal=True, window=cfg.window), "layer 0 prefill attention")
     del got, h
     timed = time_attention(q, k, v, True, cfg.window, per_graph=3,
                            replays=2, plain_reps=2)
@@ -1680,7 +1757,7 @@ def serve_prefill(cfg, params, seed: int = 19) -> dict:
         f"bf16, B=1 S={PREFILL_S} window {cfg.window}: wall "
         f"{1e3 * wall:.3f}ms, {PREFILL_S / wall:.1f} tokens/s; launches "
         f"{launches['flash_attention']}; logits finite; layer 0 attention vs "
-        f"plain max_abs_err={err}; kernel_ms={timed['ms']:.4f} "
+        f"plain max_abs_err={err} rel_l2={rel}; kernel_ms={timed['ms']:.4f} "
         f"kernel_call_ms={timed['call_ms']:.4f} bound_ms="
         f"{timed['bound_ms']:.4f} ({timed['bound_by']}) plain_ms="
         f"{timed['plain_ms']:.4f} sdpa_ms={timed['library_ms']:.4f} "
@@ -1690,7 +1767,7 @@ def serve_prefill(cfg, params, seed: int = 19) -> dict:
 
 
 def profile_decode(params, cfg, prompts, max_len: int, n: int = 8,
-                   kernel: str = "flash_kernel") -> str:
+                   kernel: str = "flash_decode_kernel") -> str:
     """Device time, busy share and kernels per step over ``n`` decode
     steps at the end of a warm cache (``torch.profiler``); ``kernel``
     names the hand kernel whose time is summed."""
@@ -1727,8 +1804,8 @@ def serve_generate(cfg, params, seed: int = 20) -> dict:
     64 new tokens, ``max_len`` 256 (128 decode steps). Tokens in the
     vocabulary, a second call equal, the decode logits at the last prompt
     position against ``make_prefill_step``'s; wall per step, the device's
-    busy share, and the decode kernel at 128 valid slots beside its
-    bound."""
+    busy share, and the decode kernel at 128 and 4096 valid slots beside
+    its bound and SDPA."""
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (GEN_B, GEN_PROMPT))).cuda()
@@ -1742,6 +1819,7 @@ def serve_generate(cfg, params, seed: int = 20) -> dict:
     launches = counts()
     if launches != dict(NO_KERNEL, flash_attention=steps * cfg.n_layers):
         raise AssertionError(f"serve-generate launches {launches}")
+    attention_forms("serve-generate", {"decode": steps * cfg.n_layers})
     t = time.perf_counter()
     second = engine.generate(prompts, GEN_NEW)
     torch.cuda.synchronize()
@@ -1762,17 +1840,24 @@ def serve_generate(cfg, params, seed: int = 20) -> dict:
     del cache
     gen = torch.Generator("cuda").manual_seed(21)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (0.5 * torch.randn((GEN_B, 1, h, d), device="cuda",
-                           generator=gen)).to(torch.bfloat16)
+    q = (SHARP_Q * torch.randn((GEN_B, 1, h, d), device="cuda",
+                               generator=gen)).to(torch.bfloat16)
     ck, cv = ((0.5 * torch.randn((GEN_B, GEN_MAX_LEN, hkv, d), device="cuda",
                                  generator=gen)).to(torch.bfloat16)
               for _ in range(2))
     k, v = ck[:, :DECODE_VALID], cv[:, :DECODE_VALID]
-    kerr = close(fa.flash_attention(q, k, v, causal=False),
-                  fa.flash_attention_ref(q, k, v, causal=False),
-                  *ATTN_TOL[torch.bfloat16], "decode-shape attention")
+    kerr, krel = attention_close(fa.flash_attention(q, k, v, causal=False),
+                                 fa.flash_attention_ref(q, k, v, causal=False),
+                                 "decode-shape attention")
     timed = time_attention(q, k, v, False, None, per_graph=50, replays=20,
                            plain_reps=50)
+    del ck, cv, k, v
+    k, v = ((0.5 * torch.randn((GEN_B, DECODE_LONG, hkv, d), device="cuda",
+                               generator=gen)).to(torch.bfloat16)
+            for _ in range(2))
+    long = time_attention(q, k, v, False, None, per_graph=20, replays=5,
+                          plain_reps=2)
+    del k, v
     per_step = (wall1 + wall2) / 2 / steps
     phase("serve-generate", (
         f"B={GEN_B}, prompt {GEN_PROMPT}, {GEN_NEW} new, max_len "
@@ -1786,7 +1871,11 @@ def serve_generate(cfg, params, seed: int = 20) -> dict:
         f"kernel_call_us={1e3 * timed['call_ms']:.3f} bound_us="
         f"{1e3 * timed['bound_ms']:.4f} ({timed['bound_by']}) plain_us="
         f"{1e3 * timed['plain_ms']:.3f} sdpa_us="
-        f"{1e3 * timed['library_ms']:.3f}; max_abs_err={kerr}"))
+        f"{1e3 * timed['library_ms']:.3f}; max_abs_err={kerr} rel_l2="
+        f"{krel}; at "
+        f"n_valid={DECODE_LONG}: kernel_us={1e3 * long['ms']:.3f} bound_us="
+        f"{1e3 * long['bound_ms']:.4f} ({long['bound_by']}) sdpa_us="
+        f"{1e3 * long['library_ms']:.3f}"))
     return dict(launches=launches["flash_attention"], max_abs_err=kerr,
                 decode=timed)
 
@@ -1903,6 +1992,7 @@ def mamba_replay(seed: int = 5) -> None:
             torch.cuda.synchronize()
             if counts() != dict(NO_KERNEL, ssd_scan=cfg.n_layers):
                 raise AssertionError(f"lm_forward launches {counts()}")
+            attention_forms(f"{dtype} mamba lm_forward", {})
             tol = SERVE_TOL[dtype] if dtype == "float32" else MAMBA_DEEP_TOL
             err = close(lg.cpu(), lm_forward(cfg, cpu, tok)[0], *tol,
                         f"{dtype} lm_forward")
@@ -1971,6 +2061,7 @@ def mamba_prefill(cfg, params, seed: int = 22) -> dict:
     launches = counts()
     if launches != dict(NO_KERNEL, ssd_scan=cfg.n_layers):
         raise AssertionError(f"mamba-prefill launches {launches}")
+    attention_forms("mamba-prefill", {})
     if tuple(logits.shape) != (1, cfg.padded_vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError("mamba-prefill logits not finite or misshapen")
@@ -2026,6 +2117,7 @@ def mamba_generate(cfg, params, seed: int = 23) -> dict:
     launches = counts()
     if launches != NO_KERNEL:
         raise AssertionError(f"mamba-generate launches {launches}")
+    attention_forms("mamba-generate", {})
     t = time.perf_counter()
     second = engine.generate(prompts, GEN_NEW)
     torch.cuda.synchronize()

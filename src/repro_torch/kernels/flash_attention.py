@@ -1,12 +1,12 @@
-"""Flash attention: a hand-written CUDA kernel for Hopper and its plain
+"""Flash attention: hand-written CUDA kernels for Hopper and their plain
 PyTorch version.
 
 Replaces the TPU Pallas kernel of ``repro/kernels/flash_attention.py``
-(body ``_kernel``, wrapper ``flash_attention``), which ``repro``'s
-``kernels/ops.attention_op`` calls after repeating the KV heads. Over q
-``(B, Sq, H, D)`` and k, v ``(B, Skv, Hkv, D)`` of float32 or bfloat16,
-``H`` a multiple of ``Hkv`` (query head ``h`` reads KV head ``h // G``,
-``G = H // Hkv``), it computes softmax attention with:
+(body ``_kernel``, wrapper ``flash_attention``, ``pallas_call``), which
+``repro``'s ``kernels/ops.attention_op`` calls after repeating the KV
+heads. Over q ``(B, Sq, H, D)`` and k, v ``(B, Skv, Hkv, D)`` of float32
+or bfloat16, ``H`` a multiple of ``Hkv`` (query head ``h`` reads KV head
+``h // G``, ``G = H // Hkv``), it computes softmax attention with:
 
 * scores ``(float(q) * scale) · float(k)``, ``scale = float32(D ** -0.5)``;
 * q right-aligned: query ``i`` sits at position ``i + Skv - Sq``;
@@ -17,19 +17,35 @@ Replaces the TPU Pallas kernel of ``repro/kernels/flash_attention.py``
 
 Every query row must see a key: ``causal`` with ``Sq > Skv`` raises.
 
-Dispatch: a CPU tensor gets the plain version; a CUDA tensor gets the
+Dispatch: a CPU tensor gets the plain version; a CUDA tensor gets a
 kernel (source ``csrc/flash_attention.cu``, built by nvcc for ``sm_90a``
 on first use into ``build/repro_torch/`` and loaded with ``ctypes``) or an
 error. Nothing falls back. The inputs are checked on either device. The
-kernel reads q, k and v through their strides (the last dim contiguous),
+kernels read q, k and v through their strides (the last dim contiguous),
 so a view of a KV cache needs no copy.
 
-Bound on the H100: operations at the prefill shape, bytes at the decode
-shape (the source's note gives both for h2o-danube-3-4b). The kernel is
-the simple one: float32 on the CUDA cores, one block per (batch, KV head,
-tile of query positions), K/V tiles of 32 keys in shared memory shared by
-the KV head's G query heads, and only the tiles that meet the causal and
-window band visited.
+Three forms of the kernel, chosen by :func:`_form` from the shape and
+dtype alone (never by a failure), each replacing the same TPU kernel:
+
+* ``"mma"`` (``flash_mma_kernel``), bfloat16 with ``Sq > 1``: the
+  prefill, bound by operations on the H100 (h2o-danube-3-4b's 8192-token
+  prefill: 3.87e11, 0.391 ms at the bf16 tensor-core peak). Both products
+  on the tensor cores (``wgmma``, float32 accumulators), 128 query rows a
+  block (the G heads of a position together), K/V tiles of 64 keys in a
+  2-stage ``cp.async`` ring, only the tiles of the causal and window band
+  visited. The probabilities are rounded to bfloat16 before ``P·V``, the
+  one rounding the TPU kernel does not do.
+* ``"decode"`` (``flash_decode_kernel``), float32 or bfloat16 with ``Sq ==
+  1``: bound by bytes (8 requests over 128 cached slots: 4.06 MB, 1.21 µs
+  at 3.35 TB/s). A block per (batch, KV head); its 8 warps take
+  contiguous slices of the keys and a log-sum-exp merge in shared memory
+  ends the launch.
+* ``"simt"`` (``flash_kernel``), float32 with ``Sq > 1``: float32 on the
+  CUDA cores (the float32 tolerance leaves no room for TF32).
+
+``flash_attention.launches`` counts launches, ``flash_attention.forms``
+launches by form; the plain version counts nothing. The source's note
+gives each form's design.
 """
 
 from __future__ import annotations
@@ -43,13 +59,17 @@ import torch
 from repro_torch.kernels import build as _build
 
 __all__ = ["flash_attention", "flash_attention_ref", "build_library",
-           "SOURCE", "NEG_INF"]
+           "SOURCE", "NEG_INF", "FORMS"]
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 #: The input dtypes and their codes in the library.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Query rows (G heads x positions) one block of the kernel holds.
+#: The kernel's forms and their codes in the library.
+FORMS = {"simt": 0, "mma": 1, "decode": 2}
+#: Query rows (G heads x positions) one block of the simt form holds; the
+#: mma form holds twice as many.
 BLOCK_ROWS = 64
+MMA_ROWS = 128
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
 
@@ -136,16 +156,28 @@ def _library():
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 8 + [i64] * 9 + [i32] * 3 + [ctypes.c_float, ptr])
+        [ptr] * 4 + [i32] * 9 + [i64] * 9 + [i32] * 3 + [ctypes.c_float, ptr])
     lib.flash_attention_launch.restype = ctypes.c_int
     return lib
+
+
+def _form(q) -> str:
+    """The kernel form a call on the card gets, from q's shape and dtype
+    alone (k and v share q's dtype; their layout picks 16-byte or single
+    loads inside a form, never the form): ``"decode"`` for one query
+    position, else ``"mma"`` in bfloat16 (the tensor cores) and ``"simt"``
+    in float32."""
+    if q.shape[1] == 1:
+        return "decode"
+    return "mma" if q.dtype == torch.bfloat16 else "simt"
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """Attention over q ``(B, Sq, H, D)`` and k, v ``(B, Skv, Hkv, D)``:
-    the CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
-    Returns ``(B, Sq, H, D)`` in q's dtype, contiguous."""
+    the CUDA kernel of :func:`_form`'s form on a CUDA tensor, the plain
+    version on a CPU tensor. Returns ``(B, Sq, H, D)`` in q's dtype,
+    contiguous."""
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -157,14 +189,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    bq = max(1, BLOCK_ROWS // (H // Hkv))
+    form = _form(q)
+    rows = MMA_ROWS if form == "mma" else BLOCK_ROWS
+    bq = max(1, rows // (H // Hkv))
     n = 16 // q.element_size()             # values in 16 bytes
     vec = D % n == 0 and all(t.data_ptr() % 16 == 0 and all(
         st % n == 0 for st in t.stride()[:3]) for t in (q, k, v))
     with torch.cuda.device(q.device):
         err = _library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, Sq, Skv, H, Hkv, D, bq,
+            FORMS[form], DTYPES[q.dtype], B, Sq, Skv, H, Hkv, D, bq,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(bool(causal)), 0 if window is None else int(window),
             int(vec), _scale(D),
@@ -172,8 +206,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.forms[form] = flash_attention.forms.get(form, 0) + 1
     return out
 
 
-#: Kernel launches since the last reset (the plain version never counts).
+#: Kernel launches since the last reset (the plain version never counts),
+#: in all and by form (only the forms launched have a key).
 flash_attention.launches = 0
+flash_attention.forms = {}

@@ -14,8 +14,13 @@ Tolerances, by reason:
   products summed in other orders by XLA and torch, and cos, sin, pow
   that may differ by an ulp; measured differences stay below 1e-6.
 
-The kernel itself runs only on the card: ``chip_smoke.py`` holds it
-against the same plain version there.
+The kernels themselves run only on the card: ``chip_smoke.py`` holds
+them against the same plain version there. Here the arithmetic of the
+card's two newer forms is written out in plain torch (the mma form's bf16
+products in tiles of 64 keys with P rounded to bf16, the decode form's
+log-sum-exp merge of 8 key slices) and held to ``repro``'s Pallas kernel
+within ``TOL``: the tolerance the card check uses is wide enough for the
+design.
 """
 
 import jax
@@ -135,6 +140,200 @@ def test_attention_op_on_cpu_is_the_plain_version_and_counts_nothing():
     got = attention_op(q, view[:, :40], v, causal=False)
     assert torch.equal(got, fa.flash_attention_ref(q, k, v, causal=False))
     assert fa.flash_attention.launches == 0
+
+
+#: (dtype, Sq, layout) -> the form the card takes: one query position
+#: takes the decode form, else bf16 the tensor cores and float32 the CUDA
+#: cores; the layout (16-byte copies or single values) does not decide it.
+FORM_CASES = [(dt, sq, lay) for dt in ("float32", "bfloat16")
+              for sq in (1, 9) for lay in ("contiguous", "strided", "offset",
+                                           "odd_dim")]
+
+
+def _laid_out(dtype: str, sq: int, layout: str):
+    """q of (2, sq, 8, D) as a CPU tensor in ``layout``: contiguous; a view
+    of every other head of a wider tensor (strided); one element off its
+    allocation (no 16-byte copies); or D = 67 (no whole chunks)."""
+    tdt = DT[dtype][1]
+    d = 67 if layout == "odd_dim" else 120
+    shape = (2, sq, 8, d)
+    if layout == "offset":
+        return torch.zeros(int(np.prod(shape)) + 1, dtype=tdt)[1:].view(shape)
+    if layout == "strided":
+        q = torch.zeros((2, sq, 16, d), dtype=tdt)[:, :, ::2]
+        assert not q.is_contiguous()
+        return q
+    return torch.zeros(shape, dtype=tdt)
+
+
+@pytest.mark.parametrize("dtype,sq,layout", FORM_CASES)
+def test_form_is_chosen_by_shape_and_dtype(dtype, sq, layout):
+    q = _laid_out(dtype, sq, layout)
+    want = ("decode" if sq == 1 else
+            "mma" if dtype == "bfloat16" else "simt")
+    assert fa._form(q) == want
+    assert set(fa.FORMS) == {"simt", "mma", "decode"}
+
+
+def test_cpu_calls_count_no_launch_and_no_form():
+    rng = np.random.default_rng(12)
+    fa.flash_attention.launches = 0
+    fa.flash_attention.forms.clear()
+    for dtype, sq in (("bfloat16", 9), ("float32", 9), ("bfloat16", 1),
+                      ("float32", 1)):
+        _, q = _pair(rng, (2, sq, 8, 64), dtype)
+        _, k = _pair(rng, (2, 12, 2, 64), dtype)
+        _, v = _pair(rng, (2, 12, 2, 64), dtype)
+        got = fa.flash_attention(q, k, v, causal=True, window=8)
+        assert torch.equal(got, fa.flash_attention_ref(q, k, v, causal=True,
+                                                       window=8))
+    assert fa.flash_attention.launches == 0
+    assert fa.flash_attention.forms == {}
+
+
+def _masked(scores, q_pos, k_pos, causal: bool, window):
+    """``scores`` (..., Sq, n) with the kernel's mask: ``-1e30`` where a key
+    is past Skv's end, later than the query (causal) or ``window`` or more
+    back."""
+    ok = torch.ones(scores.shape[-2:], dtype=torch.bool)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        ok &= q_pos[:, None] - k_pos[None, :] < window
+    return torch.where(ok, scores, fa.NEG_INF)
+
+
+def _heads_first(q, k, v):
+    """q as (B, H, Sq, D) and k, v repeated to H heads as (B, H, Skv, D),
+    all float32."""
+    G = q.shape[2] // k.shape[2]
+    return (q.float().permute(0, 2, 1, 3),
+            *(t.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v)))
+
+
+def mma_form_arithmetic(q, k, v, causal: bool, window):
+    """The mma form's arithmetic in plain torch, on bf16 inputs: the bf16
+    products summed in float32, ``scale * log2(e)`` (a float32 product)
+    applied to the float32 scores after the product, ``exp2`` and the
+    online rescale over tiles of 64 keys, P rounded to bf16 before P·V,
+    ``l`` summed from the unrounded P."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    qf, kf, vf = _heads_first(q, k, v)
+    sl2 = float(np.float32(fa._scale(D)) * np.float32(np.log2(np.e)))
+    q_pos = torch.arange(Sq) + Skv - Sq
+    m = torch.full((B, H, Sq, 1), fa.NEG_INF)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, Skv, 64):
+        k1 = min(Skv, k0 + 64)
+        s = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * sl2
+        s = _masked(s, q_pos, torch.arange(k0, k1), causal, window)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k1]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype).permute(0, 2, 1, 3)
+
+
+def decode_form_arithmetic(q, k, v, causal: bool, window,
+                           prune: bool = True, slices: int = 8):
+    """The decode form's arithmetic in plain torch (Sq = 1): the keys from
+    the window's first (``prune``; else from 0, masked) to Skv split into
+    ``slices`` contiguous slices of ``ceil(n / slices)``, each with its own
+    max, sum and accumulator (an empty slice: -1e30, 0, 0), merged by
+    log-sum-exp. Returns the output and the numbers of empty and of wholly
+    masked slices."""
+    B, _, H, D = q.shape
+    Skv = k.shape[1]
+    qf, kf, vf = _heads_first(q, k, v)
+    s = (qf * fa._scale(D)) @ kf.transpose(-1, -2)           # (B, H, 1, Skv)
+    s = _masked(s, torch.tensor([Skv - 1]), torch.arange(Skv), causal,
+                window)
+    lo = max(0, Skv - window) if prune and window is not None else 0
+    per = -(-(Skv - lo) // slices)
+    ms, ls, accs, empty, masked = [], [], [], 0, 0
+    for w in range(slices):
+        j0 = lo + w * per
+        j1 = min(Skv, j0 + per)
+        if j0 >= j1:
+            empty += 1
+            ms.append(torch.full((B, H, 1, 1), fa.NEG_INF))
+            ls.append(torch.zeros((B, H, 1, 1)))
+            accs.append(torch.zeros((B, H, 1, D)))
+            continue
+        sw = s[..., j0:j1]
+        masked += int(bool((sw == fa.NEG_INF).all()))
+        mw = sw.amax(dim=-1, keepdim=True)
+        p = torch.exp(sw - mw)
+        ms.append(mw)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(p @ vf[:, :, j0:j1])
+    mm = torch.stack(ms).amax(dim=0)
+    wts = [torch.exp(mw - mm) for mw in ms]
+    l = sum(lw * wt for lw, wt in zip(ls, wts))
+    acc = sum(aw * wt for aw, wt in zip(accs, wts))
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype).permute(0, 2, 1, 3)
+    return out, empty, masked
+
+
+def _repro_kernel(jq, jk, jv, causal, window):
+    return r_attention_op(jq, jk, jv, causal=causal, window=window,
+                          blk_q=64, blk_k=64, interpret=True)
+
+
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[1] > 1],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_mma_form_arithmetic_matches_repro_kernel(shape, causal, window):
+    """The mma form rounds P to bf16, which the TPU kernel does not: held
+    to ``repro``'s Pallas kernel within the bf16 tolerance the card check
+    uses."""
+    B, Sq, Skv, H, Hkv, D = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    jq, q = _pair(rng, (B, Sq, H, D), "bfloat16")
+    jk, k = _pair(rng, (B, Skv, Hkv, D), "bfloat16")
+    jv, v = _pair(rng, (B, Skv, Hkv, D), "bfloat16")
+    got = mma_form_arithmetic(q, k, v, causal, window)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, Sq, H, D)
+    np.testing.assert_allclose(
+        _np(got), _np(_repro_kernel(jq, jk, jv, causal, window)),
+        **TOL["bfloat16"])
+
+
+#: (B, Skv, H, Hkv, D) at Sq = 1: one key (7 empty slices), five (3
+#: empty), a slice length that does not divide Skv, and 300 keys (with
+#: window 96 and no pruning, the first slices are wholly masked).
+DECODE_SHAPES = [(2, 1, 8, 2, 120), (2, 5, 8, 2, 64), (3, 129, 4, 4, 64),
+                 (2, 300, 8, 2, 120)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("prune", [True, False], ids=["band", "all-keys"])
+def test_decode_form_merge_matches_repro_kernel(shape, causal, window,
+                                                prune, dtype):
+    """The decode form's 8-slice log-sum-exp merge, empty and wholly
+    masked slices wiped by their weight exp(-1e30 - m) = 0."""
+    B, Skv, H, Hkv, D = shape
+    rng = np.random.default_rng(sum(shape) + 2)
+    jq, q = _pair(rng, (B, 1, H, D), dtype)
+    jk, k = _pair(rng, (B, Skv, Hkv, D), dtype)
+    jv, v = _pair(rng, (B, Skv, Hkv, D), dtype)
+    got, empty, masked = decode_form_arithmetic(q, k, v, causal, window,
+                                                prune)
+    if Skv < 8:
+        assert empty == 8 - Skv
+    if Skv == 300 and window == 96:
+        assert masked == (0 if prune else 5)
+    np.testing.assert_allclose(
+        _np(got), _np(_repro_kernel(jq, jk, jv, causal, window)),
+        **TOL[dtype])
 
 
 def _bad_inputs(case: str):
