@@ -32,11 +32,12 @@ Phases (any failure ends the run with a non-zero exit code):
    than the population; the merge kernel is held against its plain
    version on the run's own merge inputs and timed; then a defended run
    (norm clip) does the same for ``gossip_merge_rows_scaled``;
-9. cell-kernel — ``cell_close_words`` vs its plain version, bit for bit,
-   over cap in {1, 4, 9, 32, 40} x ncx in {1, 3, 17, 319} x B in {1, 2},
-   empty and full cells, multi-bit zone words, pairs an ulp either side
-   of r_tx; and ``neighbor_lists`` at B = 2 on the card equal to each
-   item's CPU run;
+9. cell-kernel — ``cell_close_words`` (one block per strip of up to 32
+   cells of a grid row) vs its plain version, bit for bit, over cap in
+   {1, 4, 9, 32, 40} x ncx in {1, 3, 17, 319} x B in {1, 2} (strips of 32
+   and, at cap 40, of 16; ragged last strips), empty and full cells,
+   multi-bit zone words, pairs an ulp either side of r_tx; and
+   ``neighbor_lists`` at B = 2 on the card equal to each item's CPU run;
 10. cells-replay — N = 1024 at the paper's density on the cells backend
     (500 slots, of which whole samples of 16 run: 496): the CPU run, then
     the card replaying its positions, every trace and ``nbr_overflow``
@@ -98,21 +99,27 @@ Phases (any failure ends the run with a non-zero exit code):
     logits vs the prefill's, wall per step, a profile of 8 steps, and the
     decode kernel at 128 and 4096 valid slots beside its bound and SDPA.
 
-21. ssd-kernel — ``ssd_scan`` vs its plain version in float32 and
-    bfloat16 (tests/test_kernels.py's tolerances) over that file's cases,
-    ragged S, S below the chunk, G = 2, strided and misaligned views of
-    one xBC-like buffer, the final state, and the full prefill shape;
-    float16 and H % G != 0 must raise;
+21. ssd-kernel — ``ssd_scan`` vs its plain version in float32 (the
+    ``simt`` form) and bfloat16 (the ``mma`` form), each case asserting
+    the form ``ssd_scan.forms`` recorded, y and the final state within
+    tests/test_kernels.py's tolerances (``SSD_TOL``) and a relative L2
+    limit (``SSD_REL``), over that file's cases, ragged S, S below the
+    chunk, G = 2, strided and misaligned views of one xBC-like buffer,
+    the full prefill shape, and slow-decay cases with D = 0 (the prefill
+    shape and two ragged ones), where a wrong hand-off of the state
+    between chunks shows; float16 and H % G != 0 must raise;
 22. mamba-replay — the reduced mamba2-130m (2 layers, float32 then
     bfloat16): ``init_lm`` on the card equal to the CPU's bit for bit,
-    ``lm_forward`` logits within tolerance, ``generate`` tokens equal in
-    float32, the CPU's sequence replayed through the card's decode in
-    bfloat16, and in float32 the kernel prefill's final state vs the state
-    after the same inputs through ``mamba_decode``;
+    ``lm_forward`` logits within tolerance (the ``simt`` form in float32,
+    ``mma`` in bfloat16), ``generate`` tokens equal in float32, the CPU's
+    sequence replayed through the card's decode in bfloat16, and in
+    float32 the kernel prefill's final state vs the state after the same
+    inputs through ``mamba_decode``;
 23. mamba-prefill — mamba2-130m at its published widths, all 24 layers,
-    bf16, prefilling 8192 tokens: wall, tokens/s, 24 kernel launches,
-    layer 0's scan vs the plain version, the kernel timed beside its bound
-    and the plain version;
+    bf16, prefilling 8192 tokens: wall, tokens/s, 24 launches of the
+    ``mma`` form, layer 0's scan vs the plain version (``SSD_TOL`` and
+    ``SSD_REL``), the kernel timed beside its bound, the plain version
+    and the serial ``simt`` design on the same bf16 inputs;
 24. mamba-generate — 8 requests of 64 prompt and 64 new tokens
     (``max_len`` 256) on that model: no kernel launch (decode is the
     recurrence), tokens in the vocabulary and equal on a second call,
@@ -251,6 +258,15 @@ MAMBA_ARCH = "mamba2-130m"
 #: (rtol, atol): float32 sums in other orders, which the exp of the
 #: cumulative sums amplifies; in bfloat16 y is rounded once more.
 SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 5e-2)}
+#: ... and y's (and the final state's) relative L2 error, ||got - want|| /
+#: ||want||, at most this. Over a chunk of 128 the fast decay of the other
+#: cases (dt = softplus(0.5·randn), A in [0.5, 2]) leaves a state weight of
+#: e^-47 or less, and D·x is most of y: a state handed to the next chunk a
+#: chunk late, or decayed twice, changes y by nothing there. The slow-decay
+#: cases (dt = softplus(0.5·randn - 5), D = 0) keep exp(-csum_Q) near
+#: 0.2-0.65, where those faults move y by 0.17-0.67 of its norm. Float32:
+#: sums in other orders; bfloat16: y's one rounding to bf16 (~2e-3).
+SSD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: bfloat16 logits of a Mamba stack, one path against another (rtol,
 #: atol): an ulp of difference at a layer's input comes out of the next
 #: layer's chunked scan several ulps apart (tests/test_torch_mamba.py
@@ -708,6 +724,7 @@ def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     fa.flash_attention.forms.clear()
+    ks.ssd_scan.forms.clear()
 
 
 def attention_forms(what: str, want: dict) -> None:
@@ -716,6 +733,20 @@ def attention_forms(what: str, want: dict) -> None:
     if fa.flash_attention.forms != want:
         raise AssertionError(f"{what}: flash_attention forms "
                              f"{fa.flash_attention.forms}, want {want}")
+
+
+def ssd_forms(what: str, want: dict) -> None:
+    """``ssd_scan``'s launches by form since the last reset must be
+    ``want``."""
+    if ks.ssd_scan.forms != want:
+        raise AssertionError(f"{what}: ssd_scan forms {ks.ssd_scan.forms}, "
+                             f"want {want}")
+
+
+def ssd_form(dtype) -> str:
+    """The form an ``ssd_scan`` call must take: ``mma`` in bfloat16,
+    ``simt`` in float32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 def counts() -> dict:
@@ -1898,10 +1929,13 @@ def ssd_bound_ms(b: int, s: int, h: int, g: int, n: int, p: int, q: int,
     return roofline_ms(nbytes, flops, rate)
 
 
-def ssd_inputs(gen, b, s, h, g, n, p, dtype, offset: int = 0):
+def ssd_inputs(gen, b, s, h, g, n, p, dtype, offset: int = 0,
+               slow: bool = False):
     """x, dt, A, B, C, D on the card at tests/test_kernels.py's scales; x,
     B and C cut from one (b, s, offset + h·p + 2·g·n) buffer, as the model
-    cuts them from xBC (``offset`` elements in: a misaligned view)."""
+    cuts them from xBC (``offset`` elements in: a misaligned view). With
+    ``slow``, dt = softplus(0.5·randn - 5) (about 0.007) and D = 0, so that
+    the state carried between chunks shows in y (see ``SSD_REL``)."""
     width = h * p + 2 * g * n
     buf = torch.empty((b, s, offset + width), dtype=dtype, device="cuda")
     buf[..., offset:offset + h * p] = 0.5 * torch.randn(
@@ -1910,42 +1944,70 @@ def ssd_inputs(gen, b, s, h, g, n, p, dtype, offset: int = 0):
         (b, s, 2 * g * n), device="cuda", generator=gen)
     xs, bs, cs = torch.split(buf[..., offset:], [h * p, g * n, g * n], -1)
     dt = torch.nn.functional.softplus(
-        0.5 * torch.randn((b, s, h), device="cuda", generator=gen))
+        0.5 * torch.randn((b, s, h), device="cuda", generator=gen)
+        - (5.0 if slow else 0.0))
+    d = torch.linspace(0.1, 1.0, h, device="cuda")
     return (xs.reshape(b, s, h, p), dt,
             torch.linspace(0.5, 2.0, h, device="cuda"),
             bs.reshape(b, s, g, n), cs.reshape(b, s, g, n),
-            torch.linspace(0.1, 1.0, h, device="cuda"))
+            torch.zeros_like(d) if slow else d)
+
+
+def ssd_close(got, want, dtype, what: str) -> tuple[float, float]:
+    """``got`` against ``want`` elementwise within ``SSD_TOL[dtype]`` and
+    as a whole within ``SSD_REL[dtype]``; returns the max abs and the
+    relative L2 difference."""
+    err = close(got, want, *SSD_TOL[dtype], what)
+    g, w = got.double(), want.double()
+    rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    if not rel <= SSD_REL[dtype]:
+        raise AssertionError(f"{what}: relative L2 difference {rel} beyond "
+                             f"{SSD_REL[dtype]}")
+    return err, rel
 
 
 def check_ssd_cases() -> float:
     """``ssd_scan`` against its plain version on the card, float32 and
-    bfloat16, y and the final state, over tests/test_kernels.py's cases,
-    ragged S, S below the chunk, G = 2, views at offsets 0 and 1 of one
-    buffer, and the full prefill shape; inputs the kernel refuses must
-    raise. Returns the largest abs difference of y."""
+    bfloat16, y and the final state, each within ``SSD_TOL`` and
+    ``SSD_REL``, over tests/test_kernels.py's cases, ragged S, S below the
+    chunk, G = 2, views at offsets 0 and 1 of one buffer, the full prefill
+    shape, and slow-decay cases (``ssd_inputs``'s ``slow``) at the prefill
+    shape and two ragged ones; inputs the kernel refuses must raise.
+    Returns the largest abs difference of y."""
     gen = torch.Generator("cuda").manual_seed(21)
     cases = [(1, 64, 2, 1, 16, 16, 16, 0), (2, 96, 4, 2, 32, 32, 32, 0),
              (1, 128, 2, 1, 64, 64, 128, 0), (2, 100, 4, 1, 16, 24, 32, 1),
              (1, 20, 2, 1, 8, 8, 32, 0), (1, 48, 4, 2, 16, 16, 16, 1),
              (2, 300, 6, 2, 128, 64, 128, 1), (1, 1000, 3, 3, 40, 70, 128, 1),
              (1, PREFILL_S, 24, 1, 128, 64, 128, 0)]
+    slow = cases[-3:]
     count, worst, st_worst = 0, 0.0, 0.0
+    rels = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, h, g, n, p, q, off in cases:
-            args = ssd_inputs(gen, b, s, h, g, n, p, dtype, off)
-            assert off == 0 or args[0].data_ptr() % 16 != 0
-            y, st = ks.ssd_scan(*args, chunk=q, return_state=True)
-            torch.cuda.synchronize()
-            want, want_st = ks.ssd_scan_ref(*args, chunk=q)
-            what = f"{dtype} {(b, s, h, g, n, p, q)} offset {off}"
-            worst = max(worst, close(y, want, *SSD_TOL[dtype], what))
-            st_worst = max(st_worst, close(st, want_st,
-                                           *SSD_TOL[torch.float32],
-                                           what + " state"))
-            if not torch.equal(ks.ssd_scan(*args, chunk=q), y):
-                raise AssertionError(f"{what}: y differs without the state")
-            count += 1
-            del args, y, st, want, want_st
+        for decay, group in (("fast", cases), ("slow", slow)):
+            for b, s, h, g, n, p, q, off in group:
+                args = ssd_inputs(gen, b, s, h, g, n, p, dtype, off,
+                                  slow=decay == "slow")
+                assert off == 0 or args[0].data_ptr() % 16 != 0
+                ks.ssd_scan.forms.clear()
+                y, st = ks.ssd_scan(*args, chunk=q, return_state=True)
+                torch.cuda.synchronize()
+                want, want_st = ks.ssd_scan_ref(*args, chunk=q)
+                what = (f"{dtype} {decay} {(b, s, h, g, n, p, q)} offset "
+                        f"{off}")
+                err, rel = ssd_close(y, want, dtype, what)
+                st_err, st_rel = ssd_close(st, want_st, torch.float32,
+                                           what + " state")
+                worst, st_worst = max(worst, err), max(st_worst, st_err)
+                key = (str(dtype).split(".")[-1], decay)
+                was = rels.get(key, (0.0, 0.0))
+                rels[key] = (max(was[0], rel), max(was[1], st_rel))
+                if not torch.equal(ks.ssd_scan(*args, chunk=q), y):
+                    raise AssertionError(f"{what}: y differs without the "
+                                         f"state")
+                ssd_forms(what, {ssd_form(dtype): 2})
+                count += 1
+                del args, y, st, want, want_st
     refused = 0
     for dtype, h, g in ((torch.float16, 4, 1), (torch.float32, 4, 3)):
         x = torch.zeros((1, 8, h, 8), dtype=dtype, device="cuda")
@@ -1959,13 +2021,19 @@ def check_ssd_cases() -> float:
     if refused != 2:
         raise AssertionError("ssd_scan took float16 or H % G != 0")
     torch.cuda.empty_cache()
+    rel_note = ", ".join(f"{k[0]} {k[1]} {v[0]:.3g} (state {v[1]:.3g})"
+                         for k, v in sorted(rels.items()))
     phase("ssd-kernel", (
         f"{count} cases within tests/test_kernels.py's tolerances (float32 "
-        f"1e-4, bfloat16 5e-2): its three cases, ragged S (100, 300, 1000), "
-        f"S < Q, G = 2 and 3, N up to 128, P up to 70, views of one xBC-like "
-        f"buffer at offsets 0 and 1 (misaligned), the prefill shape (1, "
-        f"{PREFILL_S}, 24, 1, 128, 64, Q = 128); float16 and H % G != 0 "
-        f"raised; max_abs_err={worst}, final state max_abs_err={st_worst}"))
+        f"1e-4, bfloat16 5e-2) and relative L2 {SSD_REL[torch.float32]} / "
+        f"{SSD_REL[torch.bfloat16]}: its three cases, ragged S (100, 300, "
+        f"1000), S < Q, G = 2 and 3, N up to 128, P up to 70, views of one "
+        f"xBC-like buffer at offsets 0 and 1 (misaligned), the prefill shape "
+        f"(1, {PREFILL_S}, 24, 1, 128, 64, Q = 128), and slow decay with "
+        f"D = 0 at S = 300, 1000 and {PREFILL_S}; float16 and H % G != 0 "
+        f"raised; max_abs_err={worst}, final state max_abs_err={st_worst}; "
+        f"largest relative L2 of y (and the state) by dtype and decay: "
+        f"{rel_note}"))
     return worst
 
 
@@ -1993,6 +2061,8 @@ def mamba_replay(seed: int = 5) -> None:
             if counts() != dict(NO_KERNEL, ssd_scan=cfg.n_layers):
                 raise AssertionError(f"lm_forward launches {counts()}")
             attention_forms(f"{dtype} mamba lm_forward", {})
+            ssd_forms(f"{dtype} mamba lm_forward",
+                      {ssd_form(getattr(torch, dtype)): cfg.n_layers})
             tol = SERVE_TOL[dtype] if dtype == "float32" else MAMBA_DEEP_TOL
             err = close(lg.cpu(), lm_forward(cfg, cpu, tok)[0], *tol,
                         f"{dtype} lm_forward")
@@ -2012,6 +2082,7 @@ def mamba_replay(seed: int = 5) -> None:
                 torch.cuda.synchronize()
                 if counts() != dict(NO_KERNEL, ssd_scan=1):
                     raise AssertionError(f"mamba_forward launches {counts()}")
+                ssd_forms("float32 mamba_forward", {"simt": 1})
                 cache = init_mamba_cache(cfg, 2, torch.float32)
                 for t in range(u.shape[1]):
                     mamba_decode(p0, cfg, u[:, t:t + 1], cache)
@@ -2062,6 +2133,8 @@ def mamba_prefill(cfg, params, seed: int = 22) -> dict:
     if launches != dict(NO_KERNEL, ssd_scan=cfg.n_layers):
         raise AssertionError(f"mamba-prefill launches {launches}")
     attention_forms("mamba-prefill", {})
+    ssd_forms("mamba-prefill", {"mma": cfg.n_layers})
+    forms = dict(ks.ssd_scan.forms)
     if tuple(logits.shape) != (1, cfg.padded_vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError("mamba-prefill logits not finite or misshapen")
@@ -2072,13 +2145,15 @@ def mamba_prefill(cfg, params, seed: int = 22) -> dict:
     q = cfg.ssm_chunk
     got = ks.ssd_scan(*args, chunk=q)
     want, _ = ks.ssd_scan_ref(*args, chunk=q)
-    err = close(got, want, *SSD_TOL[torch.bfloat16], "layer 0 prefill scan")
+    err, rel = ssd_close(got, want, torch.bfloat16, "layer 0 prefill scan")
     del got, want, h
     bound_ms, bound_by = ssd_bound_ms(1, PREFILL_S, cfg.ssm_heads,
                                       cfg.ssm_groups, cfg.ssm_state,
                                       cfg.ssm_head_dim, q, x.dtype)
     ms = device_ms(lambda: ks.ssd_scan(*args, chunk=q), per_graph=5,
                    replays=4)
+    serial = device_ms(lambda: ks._launch("simt", *args, q, False),
+                       per_graph=5, replays=4)
     call = call_ms(lambda: ks.ssd_scan(*args, chunk=q), reps=10, warm=1)
     plain = call_ms(lambda: ks.ssd_scan_ref(*args, chunk=q), reps=3,
                     warm=1)
@@ -2088,12 +2163,14 @@ def mamba_prefill(cfg, params, seed: int = 22) -> dict:
         f"{MAMBA_ARCH} at published widths, all {cfg.n_layers} layers, "
         f"bf16, B=1 S={PREFILL_S} ({PREFILL_S // q} chunks of {q}): wall "
         f"{1e3 * wall:.3f}ms, {PREFILL_S / wall:.1f} tokens/s; launches "
-        f"{launches['ssd_scan']}; logits finite; layer 0 scan vs plain "
-        f"max_abs_err={err}; kernel_ms={ms:.4f} kernel_call_ms={call:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by}) plain_ms={plain:.4f}"))
+        f"{launches['ssd_scan']} {forms}; logits finite; layer 0 scan vs plain "
+        f"max_abs_err={err} relative L2 {rel:.3g}; kernel_ms={ms:.4f} "
+        f"kernel_call_ms={call:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"plain_ms={plain:.4f}; the serial simt design on the same bf16 "
+        f"inputs serial_ms={serial:.4f}"))
     return dict(launches=launches["ssd_scan"], max_abs_err=err, ms=ms,
                 call_ms=call, plain_ms=plain, bound_ms=bound_ms,
-                bound_by=bound_by, wall_ms=1e3 * wall)
+                bound_by=bound_by, wall_ms=1e3 * wall, serial_ms=serial)
 
 
 def mamba_generate(cfg, params, seed: int = 23) -> dict:
@@ -2141,6 +2218,8 @@ def mamba_generate(cfg, params, seed: int = 23) -> dict:
             if counts() != dict(NO_KERNEL, ssd_scan=c.n_layers):
                 raise AssertionError(f"mamba-generate prefill launches "
                                      f"{counts()}")
+            ssd_forms(f"mamba-generate {c.dtype} prefill",
+                      {ssd_form(getattr(torch, c.dtype)): c.n_layers})
             a, b = lg[:, 0].float(), pre.float()
             diffs[c.dtype] = (
                 float((a - b).abs().max()), float((a - b).norm() / b.norm()),

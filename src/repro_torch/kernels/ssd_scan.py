@@ -29,10 +29,36 @@ C_ contiguous), so the slices of a Mamba layer's ``xBC`` buffer need no
 copy: in 16-byte chunks where the pointers and strides allow, else one
 value at a time.
 
+Two forms of the kernel, chosen by :func:`_form` from x's dtype alone
+(never by a failure), each replacing the same TPU kernel:
+
+* ``"simt"`` (``ssd_kernel``), float32: float32 on the CUDA cores, one
+  block per (batch, head, 16 of the P columns) walking the chunks in
+  series, the chunk's C Bᵀ scores recomputed by each block of a head;
+* ``"mma"``, bfloat16: three launches on the current stream. Pass 1 runs
+  over (batch, chunk, 3 heads of a group) at once and writes each chunk's
+  csum, ``exp(-csum_Q)`` and own state contribution ``(w∘B)ᵀ x`` (``w =
+  exp(-(csum_Q - csum))·dt``, with ``w·x`` split into a bf16 high and low
+  part, two tensor-core products) to float32 scratch; pass 2 turns the
+  contributions, in float32, into the state entering each chunk (the
+  scan's only serial part), writes that rounded to bf16 and the final
+  state in float32; pass 3, again over all chunks at once (6 heads a
+  block), computes C Bᵀ once a block on the tensor cores and, for each
+  head, ``y = scores·x + exp(-csum)∘(C·St_in) + D·x`` with the masked,
+  decayed scores and ``St_in`` each rounded once to bf16 (the TPU's MXU
+  rounds its operands so at default precision) and y once. The scratch,
+  allocated here with ``torch.empty``, is ``(B, H, chunks, N, P rounded
+  up to 64)`` in float32 and again in bf16, 75.5 MB at mamba2-130m's
+  prefill, and the csum ``(B, H, chunks, 128)``.
+
+``ssd_scan.launches`` counts calls that launched (the mma form's three
+passes count once), ``ssd_scan.forms`` the same by form; the plain
+version counts nothing.
+
 Bound on the H100 at mamba2-130m's prefill: the bytes, by a hair over the
-operations at the bf16 tensor-core peak (the source's note gives both). The kernel is the simple one: float32 on the CUDA
-cores, one block per (batch, head, 16 of the P columns), the chunk's C Bᵀ
-scores recomputed by each block of a head.
+operations at the bf16 tensor-core peak (the source's note gives both).
+The simt form runs on the CUDA cores far above it; the mma form's floor
+is its scratch's round trip through device memory (the source's note).
 """
 
 from __future__ import annotations
@@ -50,9 +76,13 @@ __all__ = ["ssd_scan", "ssd_scan_ref", "build_library", "SOURCE"]
 SOURCE = _build.CSRC / "ssd_scan.cu"
 #: The dtypes of x, B_ and C_, and their codes in the library.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernel's forms, by the dtype of x, B_ and C_.
+FORMS = {torch.float32: "simt", torch.bfloat16: "mma"}
 #: The kernel's limits on the chunk and the state size.
 MAX_CHUNK = 128
 MAX_STATE = 128
+#: P columns a tile of the mma form: its scratch pads P up to a multiple.
+MMA_COLUMNS = 64
 
 
 def _check(x, dt, A, B_, C_, D, chunk: int) -> None:
@@ -157,22 +187,25 @@ def _library():
     lib.ssd_scan_launch.argtypes = (
         [ptr] * 8 + [i32] * 8 + [i64] * 12 + [i32, ptr])
     lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_mma_launch.argtypes = (
+        [ptr] * 12 + [i32] * 7 + [i64] * 12 + [i32, ptr])
+    lib.ssd_scan_mma_launch.restype = ctypes.c_int
     return lib
 
 
-def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int = 128,
-             return_state: bool = False):
-    """The SSD scan: the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU tensor. Returns y ``(B, S, H, P)`` in x's dtype, contiguous, and
-    with ``return_state`` also the final state ``(B, H, N, P)`` float32."""
-    _check(x, dt, A, B_, C_, D, chunk)
-    if x.device.type == "cpu":
-        y, st = ssd_scan_ref(x, dt, A, B_, C_, D, chunk)
-        y = y.to(x.dtype)
-        return (y, st) if return_state else y
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: unsupported device {x.device}")
-    _build.check_hopper(x.device, "ssd_scan")
+def _form(x) -> str:
+    """The kernel form a call on the card gets, from x's dtype alone (its
+    layout picks 16-byte or single loads inside a form, never the form):
+    ``"simt"`` for float32, ``"mma"`` for bfloat16."""
+    return FORMS[x.dtype]
+
+
+def _launch(form: str, x, dt, A, B_, C_, D, chunk: int,
+            return_state: bool):
+    """Launches ``form`` of the kernel on CUDA inputs that passed
+    :func:`_check`; returns ``(y, final state or None)``. The simt form
+    takes either dtype (the wrapper gives it float32 only); the mma form
+    bfloat16."""
     Bb, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
@@ -181,21 +214,66 @@ def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int = 128,
     A, D = A.contiguous(), D.contiguous()
     n = 16 // x.element_size()             # values in 16 bytes
     vec = N % n == 0 and P % n == 0 and all(
-        t.data_ptr() % 16 == 0 and all(st % n == 0 for st in t.stride()[:3])
+        t.data_ptr() % 16 == 0 and all(sd % n == 0 for sd in t.stride()[:3])
         for t in (x, B_, C_))
-    with torch.cuda.device(x.device):
-        err = _library().ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+    q = min(chunk, S)
+    args = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
             C_.data_ptr(), D.data_ptr(), y.data_ptr(),
-            None if st is None else st.data_ptr(), DTYPES[x.dtype],
-            Bb, S, H, G, N, P, min(chunk, S), *x.stride()[:3],
-            *dt.stride(), *B_.stride()[:3], *C_.stride()[:3], int(vec),
+            None if st is None else st.data_ptr()]
+    if form == "mma":
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"ssd_scan: the mma form takes bfloat16, not "
+                             f"{x.dtype}")
+        n_chunks = -(-S // q)
+        pp = -(-P // MMA_COLUMNS) * MMA_COLUMNS
+        ns = torch.empty((Bb, H, n_chunks, N, pp), dtype=torch.float32,
+                         device=x.device)
+        st_in = torch.empty((Bb, H, n_chunks, N, pp), dtype=torch.bfloat16,
+                            device=x.device)
+        decay = torch.empty((Bb, H, n_chunks), dtype=torch.float32,
+                            device=x.device)
+        cum = torch.empty((Bb, H, n_chunks, MAX_CHUNK), dtype=torch.float32,
+                          device=x.device)
+        args += [ns.data_ptr(), st_in.data_ptr(), decay.data_ptr(),
+                 cum.data_ptr()]
+    else:
+        args.append(DTYPES[x.dtype])
+    with torch.cuda.device(x.device):
+        lib = _library()
+        launch = (lib.ssd_scan_mma_launch if form == "mma"
+                  else lib.ssd_scan_launch)
+        err = launch(
+            *args, Bb, S, H, G, N, P, q, *x.stride()[:3], *dt.stride(),
+            *B_.stride()[:3], *C_.stride()[:3], int(vec),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan launch failed ({form} form): CUDA "
+                           f"error {err}")
+    return y, st
+
+
+def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int = 128,
+             return_state: bool = False):
+    """The SSD scan: the CUDA kernel on a CUDA tensor, in the form
+    :func:`_form` gives, the plain version on a CPU tensor. Returns y
+    ``(B, S, H, P)`` in x's dtype, contiguous, and with ``return_state``
+    also the final state ``(B, H, N, P)`` float32."""
+    _check(x, dt, A, B_, C_, D, chunk)
+    if x.device.type == "cpu":
+        y, st = ssd_scan_ref(x, dt, A, B_, C_, D, chunk)
+        y = y.to(x.dtype)
+        return (y, st) if return_state else y
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    _build.check_hopper(x.device, "ssd_scan")
+    form = _form(x)
+    y, st = _launch(form, x, dt, A, B_, C_, D, chunk, return_state)
     ssd_scan.launches += 1
+    ssd_scan.forms[form] = ssd_scan.forms.get(form, 0) + 1
     return (y, st) if return_state else y
 
 
-#: Kernel launches since the last reset (the plain version never counts).
+#: Kernel launches since the last reset (the plain version never counts),
+#: in all and by form (only the forms launched have a key).
 ssd_scan.launches = 0
+ssd_scan.forms = {}

@@ -159,6 +159,9 @@ def _check_supported(p: FGParams, cfg: SimConfig) -> int:
         later = f"mobility={cfg.mobility!r} (the rwp/manhattan slice)"
     elif cfg.speed_range is not None:
         later = "speed_range (the rwp/manhattan mobility slice)"
+    elif cfg.faults is not None and getattr(cfg.faults, "adversarial", False):
+        later = ("an adversarial fault configuration (the Byzantine slice: "
+                 "the poisoned learning payloads)")
     elif cfg.faults is not None and getattr(cfg.faults, "enabled", True):
         later = "an enabled fault configuration (the faults slice)"
     elif cfg.learn is not None and not isinstance(cfg.learn,

@@ -25,6 +25,8 @@ from repro.configs.fg_paper import paper_params as r_paper_params
 from repro.core.zones import ZoneSet as RZoneSet
 from repro.sim import SimConfig as RCfg
 from repro.sim import simulate as r_simulate
+from repro.sim.faults import FaultClass as RFaultClass
+from repro.sim.faults import FaultConfig as RFaultConfig
 from repro.sim.mobility import get_mobility as rget
 from repro.sim.state import init_sim_state as r_init_state
 from repro_torch import random as tr
@@ -196,6 +198,10 @@ def test_default_device_without_cuda_raises():
     (dict(mobility="rwp"), "rwp"),
     (dict(speed_range=(0.5, 1.5)), "speed_range"),
     (dict(learn=logreg_task(), faults=object()), "faults slice"),
+    (dict(learn=logreg_task(), faults=RFaultConfig(classes=(
+        RFaultClass(frac=0.5),
+        RFaultClass(frac=0.5, adv_mode="signflip", adv_scale=1.0)))),
+     "Byzantine slice"),
     (dict(zones=ZoneSet(centers=((20.0, 20.0), (40.0, 40.0)),
                         radii=(15.0, 15.0))), "multi-zone"),
 ])
