@@ -7,9 +7,15 @@ Phases (any failure ends the run with a non-zero exit code):
 1. device — the card's name and power limit; it must be sm_90;
 2. build — the CUDA kernels from ``src/repro_torch/csrc``, one nvcc per
    source, all started together;
-3. kernel — ``pairwise_contacts`` vs its plain version on the card, bit for
-   bit on every output, over N x prev-density cases, multi-bit zone words
-   and a dense node cluster;
+3. kernel — first the card's launch floor (a one-element ``fill_`` timed
+   as the kernels are, printed as ``launch_floor_us`` here and on the
+   merge-kernel line); then ``pairwise_contacts`` vs its plain version on
+   the card, bit for bit on every output, over N x prev-density cases,
+   multi-bit zone words, a dense node cluster, N = 1024, 1025 and 2048
+   (lanes holding one word or two), B = 16, lattice positions (equal d²
+   across lanes and words), ``prevw`` with every bit set but a few, and N =
+   5000 and 16500 (5 and 17 segments of 1024 columns, each loading the
+   next one's ``prevw`` words; two chunks of columns at 16500);
 4. merge-kernel — ``gossip_merge_rows`` and ``gossip_merge_rows_scaled``
    (in both operand orders: ``fold`` off and on) vs their plain versions,
    bit for bit, over N x D, all/no/mixed rows
@@ -23,10 +29,12 @@ Phases (any failure ends the run with a non-zero exit code):
    protocol trace equal bit for bit, CPU vs card and learning vs
    ``learn=None``; the learning traces within tolerance;
 7. free runs on the card — the paper point (N = 200, 8000 slots) and the
-   dense N = 800 point (4000 slots), with wall time, slots/s, launches and
+   dense N = 800 point (2000 slots), with wall time, slots/s, launches and
    sanity checks; then the contact kernel is held against its plain
    version bit for bit on that point's own inputs (B = 1) and both are
-   timed, beside the kernel's bound;
+   timed, beside the kernel's bound; after the paper point, kernel-sweeps
+   does the same for 16 paper-point runs in one launch (B = 16, N = 200,
+   the sweeps' shape);
 8. learn-run — the learning point at full width (N = 200, logreg; 8000
    slots) free on the card: accuracy must rise, holders must be no worse
    than the population; the merge kernel is held against its plain
@@ -357,19 +365,45 @@ def device_ms(fn, per_graph: int = 50, replays: int = 20) -> float:
     return ms
 
 
+def launch_floor_ms() -> float:
+    """The card's launch floor: device time per call of a one-element
+    ``fill_`` in the same CUDA-graph harness as the kernels
+    (:func:`device_ms`), the least any launch on this path can take."""
+    one = torch.empty(1, device="cuda")
+    return device_ms(lambda: one.fill_(0.0))
+
+
 def random_case(rng, b: int, n: int, density: float, side: float,
-                zone_bits: int):
+                zone_bits: int, lattice: bool = False,
+                full_prev: bool = False, r_tx2: float = 25.0):
     """Kernel inputs on the card: positions in a ``side`` square, zone
-    words with up to ``zone_bits`` bits, symmetric previous contacts."""
-    x = torch.tensor(rng.uniform(0, side, (b, n)), dtype=torch.float32)
-    y = torch.tensor(rng.uniform(0, side, (b, n)), dtype=torch.float32)
-    zw = torch.tensor(rng.integers(0, 1 << zone_bits, (b, n)),
-                      dtype=torch.int32)
+    words with up to ``zone_bits`` bits, symmetric previous contacts.
+
+    ``lattice``: positions on the integer lattice of the square, every node
+    in zone 1, so that many pairs of a row share one d² (the argmin's tie
+    rule across lanes and words). ``full_prev``: every bit of ``prevw`` set
+    (pad bits too) except a tenth of the close pairs' bits."""
+    if lattice:
+        xy = rng.integers(0, int(side), (2, b, n)).astype(np.float32)
+        x, y = (torch.tensor(v) for v in xy)
+        zw = torch.ones((b, n), dtype=torch.int32)
+    else:
+        x = torch.tensor(rng.uniform(0, side, (b, n)), dtype=torch.float32)
+        y = torch.tensor(rng.uniform(0, side, (b, n)), dtype=torch.float32)
+        zw = torch.tensor(rng.integers(0, 1 << zone_bits, (b, n)),
+                          dtype=torch.int32)
     elig = torch.tensor(rng.random((b, n)) < 0.7)
-    prev = torch.rand((b, n, n), device="cuda",
-                      generator=torch.Generator("cuda").manual_seed(n)) < density
-    prevw = pack_mask(prev & prev.transpose(1, 2))
-    return [t.cuda() for t in (x, y, zw, elig)] + [prevw]
+    args = [t.cuda() for t in (x, y, zw, elig)]
+    gen = torch.Generator("cuda").manual_seed(n)
+    if full_prev:
+        closew = kc.pairwise_contacts_ref(
+            *args, torch.zeros((b, n, (n + 31) // 32), dtype=torch.int32,
+                               device="cuda"), r_tx2)[0]
+        keep = pack_mask(torch.rand((b, n, n), device="cuda",
+                                    generator=gen) < 0.1)
+        return args + [~(closew & keep)]
+    prev = torch.rand((b, n, n), device="cuda", generator=gen) < density
+    return args + [pack_mask(prev & prev.transpose(1, 2))]
 
 
 def max_abs_err(got, want) -> int:
@@ -377,26 +411,45 @@ def max_abs_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
-def check_kernel_cases() -> int:
+def check_kernel_cases(floor_ms: float) -> int:
+    """The kernel against its plain version, bit for bit, over N x prev
+    density (B = 2), multi-bit zone words, a dense cluster, the N where
+    lanes start to hold more than one word (1024, 1025, 2048), the sweeps'
+    batch (B = 16), lattice positions full of equal d², ``prevw`` with
+    every bit set but a few, and N = 5000 and 16500 (5 and 17 segments of
+    1024 columns, and at 16500 two chunks)."""
     rng = np.random.default_rng(0)
     r_tx2 = 25.0
     worst = 0
-    cases = [(n, d, 60.0, 1) for n in (20, 33, 65, 130, 200, 800, 3200)
+    cases = [dict(n=n, density=d) for n in (20, 33, 65, 130, 200, 800, 3200)
              for d in (0.0, 0.3, 1.0)]
-    cases += [(200, 0.2, 60.0, 5), (130, 0.0, 4.0, 1), (130, 0.0, 4.0, 3)]
-    for n, density, side, bits in cases:
-        args = random_case(rng, 2, n, density, side, bits)
+    cases += [dict(n=200, density=0.2, zone_bits=5),
+              dict(n=130, side=4.0), dict(n=130, side=4.0, zone_bits=3)]
+    cases += [dict(n=n, density=d) for n in (1024, 1025, 2048)
+              for d in (0.0, 0.3)]
+    cases += [dict(n=200, density=0.2, b=16), dict(n=200, b=16, lattice=True,
+                                                     side=14.0)]
+    cases += [dict(n=n, lattice=True, side=side)
+              for n, side in ((200, 12.0), (1100, 40.0), (2048, 45.0))]
+    cases += [dict(n=n, full_prev=True, side=side)
+              for n, side in ((200, 30.0), (1025, 60.0))]
+    # many segments a chunk; past 16384, two chunks
+    cases += [dict(n=5000, side=400.0, density=0.001),
+              dict(n=16500, b=1, side=600.0, density=0.0002)]
+    for case in cases:
+        kw = dict(b=2, density=0.0, side=60.0, zone_bits=1) | case
+        args = random_case(rng, kw.pop("b"), kw.pop("n"), r_tx2=r_tx2, **kw)
         got = kc.pairwise_contacts(*args, r_tx2)
         want = kc.pairwise_contacts_ref(*args, r_tx2)
         torch.cuda.synchronize()
         for g, w, name in zip(got, want, ("closew", "best_j", "has")):
             if not torch.equal(g, w):
-                raise AssertionError(
-                    f"kernel != plain on {name} at N={n} density={density} "
-                    f"side={side} zone_bits={bits}")
+                raise AssertionError(f"kernel != plain on {name} at {case}")
         worst = max(worst, max_abs_err(got, want))
-    phase("kernel", f"{len(cases)} cases bit for bit (N up to 3200, B=2, "
-                    f"multi-bit zone words, clustered nodes); max_abs_err={worst}")
+    phase("kernel", f"{len(cases)} cases bit for bit (N up to 16500 in two "
+                    f"chunks, B=1, 2 and 16, multi-bit zone words, clustered "
+                    f"nodes, N=1024/1025/2048, lattice ties, full prevw); "
+                    f"max_abs_err={worst} launch_floor_us={1e3 * floor_ms:.3f}")
     return worst
 
 
@@ -425,10 +478,13 @@ def main_path_inputs(cfg: SimConfig, seed: int):
     return (*sweep_args(mob.pos), prevw), r_tx2
 
 
-def time_kernel(cfg: SimConfig, seed: int) -> dict:
+def time_kernel(cfg: SimConfig, seed: int, b: int = 1) -> dict:
     """Holds the kernel against its plain version, bit for bit, on the
-    main path's own inputs at ``cfg``, then times both."""
-    args, r_tx2 = main_path_inputs(cfg, seed)
+    main path's own inputs at ``cfg`` (``b`` runs, seeds ``seed`` on,
+    stacked on the batch axis), then times both."""
+    items = [main_path_inputs(cfg, seed + k) for k in range(b)]
+    r_tx2 = items[0][1]
+    args = tuple(torch.cat([a[i] for a, _ in items]) for i in range(5))
 
     def kernel():
         return kc.pairwise_contacts(*args, r_tx2)
@@ -442,12 +498,25 @@ def time_kernel(cfg: SimConfig, seed: int) -> dict:
         if not torch.equal(g, w):
             raise AssertionError(
                 f"kernel != plain on {name} at the main path's inputs, "
-                f"N={cfg.n_nodes}")
-    bound_ms, bound_by = kernel_bound_ms(1, cfg.n_nodes)
+                f"N={cfg.n_nodes} B={b}")
+    bound_ms, bound_by = kernel_bound_ms(b, cfg.n_nodes)
     return dict(on="the path's inputs", max_abs_err=max_abs_err(got, want),
                 ms=device_ms(kernel), plain_ms=device_ms(plain),
                 call_ms=call_ms(kernel), plain_call_ms=call_ms(plain),
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def time_sweeps_shape(floor_ms: float, b: int = 16) -> None:
+    """The contact kernel at the sweeps' shape: ``b`` paper-point runs
+    (N = 200) in one launch, on their own inputs."""
+    k = time_kernel(SimConfig(), 0, b)
+    phase("kernel-sweeps", (
+        f"B={b} N=200 (seeds 0-{b - 1}, one rdm step): kernel==plain "
+        f"(max_abs_err={k['max_abs_err']}) kernel_us={1e3 * k['ms']:.3f} "
+        f"bound_us={1e3 * k['bound_ms']:.5f} ({k['bound_by']}) "
+        f"plain_us={1e3 * k['plain_ms']:.3f} "
+        f"kernel_call_us={1e3 * k['call_ms']:.3f} "
+        f"launch_floor_us={1e3 * floor_ms:.3f}"))
 
 
 def same_traces(a, b, what: str = "replayed GPU run != CPU run",
@@ -559,6 +628,7 @@ def profile_slots(label: str, p, cfg: SimConfig, n_slots: int = 32) -> None:
         f"{label}: {n_slots} slots in {time.perf_counter() - t_all:.1f}s "
         f"with the profiler, wall_per_slot_us={wall_us / n_slots:.1f} "
         f"device_busy_share={busy_us / wall_us:.4f} "
+        f"device_us_per_slot={busy_us / n_slots:.1f} "
         f"kernels_per_slot={sum(e.count for e in dev) / n_slots:.1f} top: " +
         "; ".join(f"{e.key[:48]} {e.self_device_time_total / n_slots:.2f}us/slot "
                   f"x{e.count / n_slots:.1f}" for e in top)))
@@ -631,7 +701,7 @@ def check_merge_pair(args, label: str) -> float:
     return worst
 
 
-def check_merge_cases() -> float:
+def check_merge_cases(floor_ms: float) -> float:
     gen = torch.Generator("cuda").manual_seed(13)
     count, worst = 0, 0.0
     for n in (1, 7, 200, 4097):
@@ -645,7 +715,8 @@ def check_merge_cases() -> float:
     phase("merge-kernel", f"{count} cases x 2 kernels (the scaled one with "
                           f"and without fold) bit for bit (N up to 4097, D "
                           f"up to 1000, NaN/inf in unselected peer rows, "
-                          f"scale 1 and < 1); max_abs_err={worst}")
+                          f"scale 1 and < 1); max_abs_err={worst} "
+                          f"launch_floor_us={1e3 * floor_ms:.3f}")
     return worst
 
 
@@ -2285,8 +2356,9 @@ def main() -> int:
         raise RuntimeError(f"need an sm_90 card, got sm_{cap[0]}{cap[1]}")
 
     build_all()
-    err = check_kernel_cases()
-    merge_worst = check_merge_cases()
+    floor_ms = launch_floor_ms()
+    err = check_kernel_cases(floor_ms)
+    merge_worst = check_merge_cases(floor_ms)
     flat_worst = check_flat_merge_cases()
     cell_worst = check_cell_cases()
     check_replay()
@@ -2294,7 +2366,8 @@ def main() -> int:
     learn_replay(logreg_task(), 1000)
     learn_replay(mlp_task(), 320)
     main_run = free_run("paper", paper_params(lam=0.05, M=1), SimConfig())
-    dense_run = free_run("dense-800", *scaled_point(800, 4000))
+    time_sweeps_shape(floor_ms)
+    dense_run = free_run("dense-800", *scaled_point(800, 2000))
     cells_vs_dense()
     cell_run = cells_run()
     rows = learn_run()

@@ -1,25 +1,38 @@
-"""``ssd_scan`` and ``cell_close_words`` of two checkouts of the port, on
-one card.
+"""Hand kernels of two checkouts of the port, on one card.
 
     python3 scripts/ab_kernels.py BEFORE_DIR AFTER_DIR [--rounds 2]
+        [--parts ssd,cells,contacts,merge]
 
-First holds BEFORE's ``ssd_scan`` to AFTER's ``chip_smoke.py`` check
-(``check_ssd_cases``: every case within ``SSD_TOL`` and ``SSD_REL``, the
-slow-decay cases included), so a stricter check is shown to pass on the
-kernel it replaces. Then runs each checkout in turn, one process a run, in
-the order before, after, after, before (``--rounds`` such pairs of
-pairs), so drift of the card and host is shared. Each run builds its
-checkout's kernels into its own ``build/`` and measures, with its own
-``chip_smoke.py``'s helpers:
+With the ``ssd`` part, first holds BEFORE's ``ssd_scan`` to AFTER's
+``chip_smoke.py`` check (``check_ssd_cases``: every case within
+``SSD_TOL`` and ``SSD_REL``, the slow-decay cases included), so a stricter
+check is shown to pass on the kernel it replaces. Then runs each checkout
+in turn, one process a run, in the order before, after, after, before
+(``--rounds`` such pairs of pairs), so drift of the card and host is
+shared. Each run builds its checkout's kernels into its own ``build/`` and
+measures, with its own ``chip_smoke.py``'s helpers, the parts asked for
+(all four by default):
 
-* ``ssd_scan`` at mamba2-130m's prefill shape (B = 1, S = 8192, 24 heads
-  of 64, N = 128, G = 1, Q = 128, bf16), device ms in a CUDA graph, and
-  the device µs of each CUDA kernel it launches (``torch.profiler``);
-* the mamba2-130m prefill (all 24 layers, 8192 tokens): wall ms;
-* ``cell_close_words`` at the N = 12800 point (319 × 319 cells, cap 9) on
-  the planes of the last of 64 slots of a run (seed 0), and on planes with
-  most slots full (``chip_smoke.cell_case``, seed 3), device ms; and that
-  point's wall and summed device µs a slot over 32 profiled slots.
+* ``ssd``: ``ssd_scan`` at mamba2-130m's prefill shape (B = 1, S = 8192,
+  24 heads of 64, N = 128, G = 1, Q = 128, bf16), device ms in a CUDA
+  graph, and the device µs of each CUDA kernel it launches
+  (``torch.profiler``); the mamba2-130m prefill (all 24 layers, 8192
+  tokens): wall ms;
+* ``cells``: ``cell_close_words`` at the N = 12800 point (319 × 319 cells,
+  cap 9) on the planes of the last of 64 slots of a run (seed 0), and on
+  planes with most slots full (``chip_smoke.cell_case``, seed 3), device
+  ms; and that point's wall and summed device µs a slot over 32 profiled
+  slots;
+* ``contacts``: ``pairwise_contacts`` on the main path's own inputs
+  (``chip_smoke.main_path_inputs``: one rdm step from seed 0) at the
+  paper point (N = 200), the dense N = 800 point, and 16 paper-point runs
+  in one launch (B = 16, seeds 0-15), each held bit for bit to its plain
+  version, device ms in a CUDA graph; the card's launch floor (a
+  one-element ``fill_`` in the same harness); and the paper point's wall
+  and summed device µs a slot over 32 profiled slots;
+* ``merge``: ``gossip_merge_rows`` at R = 200, D = 34, about 60% of the
+  rows selected, random w (``chip_smoke.merge_case``, seed 22), held bit
+  for bit to its plain version, device ms.
 
 Prints each run's numbers, then one JSON line with all of them by
 checkout.
@@ -47,7 +60,7 @@ ks.build_library()
 c.check_ssd_cases()
 """
 
-RUN = """
+PRELUDE = """
 import dataclasses
 import json
 import re
@@ -56,12 +69,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 import chip_smoke as c
 
+out = {}
+"""
+
+PARTS = {"ssd": """
 c.ks.build_library()
-c.kc.build_cell_library()
 gen = torch.Generator("cuda").manual_seed(21)
 args = c.ssd_inputs(gen, 1, c.PREFILL_S, 24, 1, 128, 64, torch.bfloat16)
-out = dict(ssd_ms=c.device_ms(lambda: c.ks.ssd_scan(*args, chunk=128),
-                              per_graph=10, replays=10))
+out["ssd_ms"] = c.device_ms(lambda: c.ks.ssd_scan(*args, chunk=128),
+                            per_graph=10, replays=10)
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     for _ in range(10):
         c.ks.ssd_scan(*args, chunk=128)
@@ -81,6 +97,8 @@ cfg, params = c.mamba_model()
 out["prefill_wall_ms"] = c.mamba_prefill(cfg, params)["wall_ms"]
 del params
 torch.cuda.empty_cache()
+""", "cells": """
+c.kc.build_cell_library()
 p, scfg = c.scaled_point(12800, 64)
 with c.Recorder("cell_close_words", keep=1, module=c.sim_cells) as rec:
     c.simulate(p, scfg, seed=0)
@@ -97,6 +115,41 @@ for key, a, kw in (("cells_run_planes_ms", run_args, run_kw),
     if not torch.equal(got, c.kc.cell_close_words_ref(*a, **kw)):
         raise AssertionError(key + ": kernel != plain version")
     out[key] = c.device_ms(lambda: c.kc.cell_close_words(*a, **kw))
+""", "contacts": """
+c.kc.build_library()
+one = torch.empty(1, device="cuda")
+out["launch_floor_ms"] = c.device_ms(lambda: one.fill_(0.0))
+for key, cfg, b in (("contacts_n200_ms", c.SimConfig(), 1),
+                    ("contacts_n800_ms", c.scaled_point(800, 2000)[1], 1),
+                    ("contacts_b16_n200_ms", c.SimConfig(), 16)):
+    items = [c.main_path_inputs(cfg, k) for k in range(b)]
+    r_tx2 = items[0][1]
+    a = tuple(torch.cat([x[i] for x, _ in items]) for i in range(5))
+    got = c.kc.pairwise_contacts(*a, r_tx2)
+    want = c.kc.pairwise_contacts_ref(*a, r_tx2)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(key + ": kernel != plain version")
+    out[key] = c.device_ms(lambda: c.kc.pairwise_contacts(*a, r_tx2))
+p = c.paper_params(lam=0.05, M=1)
+short = c.SimConfig(n_slots=32)
+c.simulate(p, short)
+wall_us, dev = c.profiled(lambda: c.simulate(p, short))
+out["paper_slot_wall_us"] = wall_us / 32
+out["paper_slot_device_us"] = sum(e.self_device_time_total for e in dev) / 32
+""", "merge": """
+c.gm.build_library()
+gen = torch.Generator("cuda").manual_seed(22)
+own, peer, w, scale, s = c.merge_case(gen, 200, 34, "mixed", "random")
+got = c.gm.gossip_merge_rows(own, peer, w, s)
+if not torch.equal(got.view(torch.int32),
+                   c.gm.gossip_merge_rows_ref(own, peer, w, s)
+                   .view(torch.int32)):
+    raise AssertionError("gossip_merge_rows: kernel != plain version")
+out["merge_rows_ms"] = c.device_ms(
+    lambda: c.gm.gossip_merge_rows(own, peer, w, s))
+"""}
+
+FOOTER = """
 print("AB " + json.dumps(out))
 """
 
@@ -115,17 +168,24 @@ def main() -> int:
     ap.add_argument("before", type=Path)
     ap.add_argument("after", type=Path)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated, of " + ", ".join(PARTS))
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not parts or any(p not in PARTS for p in parts):
+        ap.error(f"--parts: choose from {', '.join(PARTS)}")
     before, after = args.before.resolve(), args.after.resolve()
-    line = next(x for x in run(after, CHECK.format(
-        before=str(before), after=str(after))).splitlines()
-        if x.startswith("[ssd-kernel"))
-    print(f"{before.name} under {after.name}'s check: {line}", flush=True)
+    if "ssd" in parts:
+        line = next(x for x in run(after, CHECK.format(
+            before=str(before), after=str(after))).splitlines()
+            if x.startswith("[ssd-kernel"))
+        print(f"{before.name} under {after.name}'s check: {line}", flush=True)
+    code = PRELUDE + "".join(PARTS[p] for p in parts) + FOOTER
     runs = {"before": [], "after": []}
     for _ in range(args.rounds):
         for key in ("before", "after", "after", "before"):
             tree = before if key == "before" else after
-            text = run(tree, RUN)
+            text = run(tree, code)
             got = json.loads(next(x for x in text.splitlines()
                                   if x.startswith("AB "))[3:])
             print(f"{key} ({tree.name}): {json.dumps(got)}", flush=True)

@@ -44,41 +44,74 @@
 // unselected row is own, bit for bit, whatever peer holds (NaN and inf
 // included).
 //
-// What bounds the row merges: bytes. own is read and out written in full;
-// peer, w and the scale are needed only on the k selected rows, s on every
-// row: 2*R*D*4 + k*D*4 + R + 4k bytes (+ 4k scaled), with 3 or 4 float
+// What bounds the row merges: the launch. own is read and out written in
+// full; peer, w and the scale are needed only on the k selected rows, s on
+// every row: 2*R*D*4 + k*D*4 + R + 4k bytes (+ 4k scaled), with 3 or 4 float
 // operations per selected element. At the simulator's R = 200, D = 34 that
 // is at most about 83 KB (every row selected), some 25 ns at the H100's
-// 3.35 TB/s, so the launch latency dominates. The design is the simplest
-// that moves each byte once: one thread per element, consecutive threads on
-// consecutive elements of a row (coalesced), the per-row scalars read from
-// cache. The TPU kernel's (256-row, 128-lane) padded tiles have no
-// counterpart: the kernel masks the ragged end itself and pads nothing.
+// 3.35 TB/s, far below the card's floor for starting and retiring a kernel.
+// What a launch costs beyond that floor is the chain of dependent loads in
+// a thread, and its arithmetic. Both kernels take one thread per element,
+// consecutive threads on consecutive elements of a row (coalesced), and pad
+// nothing (the TPU kernels' (256-row, 128-lane) tiles have no counterpart).
+//
+// gossip_merge_rows' first design (still the scaled kernel's) loaded s[r],
+// branched on it, and only then loaded w[r] and peer[k]: two rounds of
+// loads where one does; and it found the row by a 64-bit division, a chain
+// of dependent instructions ahead of every load. Now own[k], peer[k], w[r] and
+// s[r] are four independent loads issued together and s selects the result
+// (an unselected row is still own's bits: the merged value of a NaN or inf
+// peer is computed and dropped); the row is one 64-bit high multiply by a
+// reciprocal the host computes (row_of), on 32-bit indices, wherever R*D <
+// 2^31 - 256; larger shapes take a second instance with a 64-bit index and
+// a division. Blocks of 256 threads make R = 200, D = 34 a grid of 27
+// blocks, each on an SM of its own, all in one wave.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
 
+// k / d for k, d < 2^32 by one 64-bit high multiply: magic = ceil(2^64 / d)
+// (row_magic), 0 for d = 1. Exact: k * magic / 2^64 = k / d + k * e / 2^64
+// with 0 <= e < 1, and k * e / 2^64 < 1 / d since k * d < 2^64.
+__device__ __forceinline__ unsigned row_of(unsigned k,
+                                           unsigned long long magic) {
+  return magic ? static_cast<unsigned>(__umul64hi(k, magic)) : k;
+}
+
+unsigned long long row_magic(int d) {
+  return d == 1 ? 0ull : ~0ull / static_cast<unsigned>(d) + 1;
+}
+
+// Wide: a 64-bit index and a division, for shapes of 2^31 - 256 elements
+// or more; otherwise 32-bit indices and row_of.
+template <bool Wide>
 __global__ void __launch_bounds__(kThreads)
 merge_rows_kernel(const float* __restrict__ own,
                   const float* __restrict__ peer,
                   const float* __restrict__ w,
                   const uint8_t* __restrict__ s,
-                  float* __restrict__ out, int64_t total, int d) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+                  float* __restrict__ out, int64_t total, int d,
+                  unsigned long long magic) {
+  using Idx = typename std::conditional<Wide, int64_t, unsigned>::type;
+  const Idx k = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
   if (k >= total) return;
-  const int64_t r = k / d;
+  Idx r;
+  if constexpr (Wide)
+    r = k / d;
+  else
+    r = row_of(k, magic);
   const float o = own[k];
-  if (!s[r]) {
-    out[k] = o;
-    return;
-  }
   const float wr = w[r];
-  out[k] = __fmaf_rn(__fsub_rn(1.f, wr), peer[k], __fmul_rn(wr, o));
+  const bool sel = s[r] != 0;
+  const float m = __fmaf_rn(__fsub_rn(1.f, wr), peer[k], __fmul_rn(wr, o));
+  out[k] = sel ? m : o;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -201,11 +234,18 @@ extern "C" int gossip_merge_rows_launch(const void* own, const void* peer,
                                         void* stream) {
   const int64_t total = static_cast<int64_t>(rows) * d;
   if (total == 0) return 0;
-  merge_rows_kernel<<<blocks(total), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(own), static_cast<const float*>(peer),
-      static_cast<const float*>(w), static_cast<const uint8_t*>(s),
-      static_cast<float*>(out), total, d);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* o = static_cast<const float*>(own);
+  const float* p = static_cast<const float*>(peer);
+  const float* wf = static_cast<const float*>(w);
+  const uint8_t* sf = static_cast<const uint8_t*>(s);
+  float* r = static_cast<float*>(out);
+  if (total <= INT32_MAX - kThreads)   // k stays below 2^31
+    merge_rows_kernel<false><<<blocks(total), kThreads, 0, st>>>(
+        o, p, wf, sf, r, total, d, row_magic(d));
+  else
+    merge_rows_kernel<true><<<blocks(total), kThreads, 0, st>>>(
+        o, p, wf, sf, r, total, d, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

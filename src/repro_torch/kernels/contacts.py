@@ -22,13 +22,26 @@ kernel (source ``csrc/contacts.cu``, built with nvcc for ``sm_90a`` on
 first use into ``build/repro_torch/`` and loaded with ``ctypes``) or an
 error. Nothing falls back.
 
-Bound on the H100: the sweep reads each input once and writes each output
-once, ``18·B·N + 8·B·N·ceil(N/32)`` bytes, and does 5 float32 operations
-per pair; at the paper's N = 200 both bounds are a few nanoseconds, so
-the launch itself dominates. The design (one warp per
-row, columns staged through shared memory, ``__ballot_sync`` packing one
-word per 32 columns, a warp-shuffle argmin) keeps every intermediate out
-of device memory, as the TPU kernel keeps it in VMEM.
+What bounds it on the H100: the launch. The sweep reads each input once
+and writes each output once, ``18·B·N + 8·B·N·ceil(N/32)`` bytes, and
+does 5 float32 operations per pair; at the paper's N = 200 both bounds are
+a few nanoseconds, far below the card's floor for starting and retiring a
+kernel. What a launch costs beyond that floor is the chain of dependent
+memory round trips inside it. The first design (one warp a row, 8 rows a
+block, columns staged in chunks of 256) waited on one global load of a
+``prevw`` word per 32 columns, in turn, and ran 25 blocks at N = 200. This
+one, still one warp a row, issues every global read of the row (its own
+node, its first 32 ``prevw`` words, lane ``k`` holding word ``k``) and of
+the columns (13 bytes a node, staged once into shared memory behind one
+barrier) before it computes; past 1024 columns each segment of 1024 loads
+the next one's ``prevw`` words before its own work. It takes the words 8
+at a time, unrolled, each word's prev bits by a shuffle from the lane that
+holds them and its ``__ballot_sync`` kept by that lane, so ``closew``
+leaves in one coalesced store a segment; and merges the lanes' first
+minima by (d², j). The launch geometry, :func:`contact_geometry`, takes 4
+rows a block (50 blocks at N = 200; a batch of 16 runs 800) and chunks
+the columns only beyond 16384 of them (213 KB of shared memory). Nothing
+intermediate reaches device memory, as the TPU kernel keeps it in VMEM.
 
 The module also holds the cell-list backend's kernel,
 :func:`cell_close_words` (source ``csrc/cells.cu``; it replaces the TPU
@@ -42,6 +55,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -50,7 +64,8 @@ from repro_torch.numerics import fma32
 
 __all__ = [
     "zone_words", "apply_access", "pairwise_close_ref", "candidate_best_ref",
-    "pairwise_contacts_ref", "pairwise_contacts", "build_library",
+    "pairwise_contacts_ref", "pairwise_contacts", "contact_geometry",
+    "ContactGeometry", "build_library",
     "SOURCE", "BUILD_DIR", "padded_cell_id", "cell_neighborhood_offsets",
     "interior_cell_ids", "cell_close_words_ref", "cell_close_words",
     "build_cell_library", "CELL_SOURCE",
@@ -119,6 +134,38 @@ def pairwise_contacts_ref(x, y, zw, elig, prevw, r_tx2):
     return closew, best, has
 
 
+#: ``pairwise_contacts``' geometry: rows (warps) a block, as ``kRows`` in
+#: ``csrc/contacts.cu``; columns staged in shared memory at once, as
+#: ``kMaxChunk``; bytes staged a column (x, y and the zone word, 4 each;
+#: elig, 1).
+ROWS = 4
+MAX_CHUNK = 16384
+STAGE_BYTES = 13
+
+
+class ContactGeometry(NamedTuple):
+    """``pairwise_contacts``' launch: ``rows`` warps a block, one row each;
+    ``chunk`` columns staged into ``smem`` bytes of shared memory at once."""
+    rows: int
+    chunk: int
+    smem: int
+
+
+def contact_geometry(n: int) -> ContactGeometry:
+    """The launch geometry of the sweep over items of ``n`` nodes.
+
+    A block takes ``ROWS`` = 4 rows at every size (50 blocks at N = 200,
+    200 at N = 800, 800 at B = 16 and N = 200). Every column is staged at
+    once up to ``MAX_CHUNK`` (13 bytes a node, 213 KB at 16384 of the 227
+    KB a block may hold); beyond it the kernel passes over the row in
+    chunks of ``MAX_CHUNK``. The grid, (row tiles, B), is the kernel's."""
+    if n < 1:
+        raise ValueError(f"contact_geometry: need n >= 1, got {n}")
+    chunk = min(n, MAX_CHUNK)
+    return ContactGeometry(rows=ROWS, chunk=chunk,
+                           smem=-(-STAGE_BYTES * chunk // 16) * 16)
+
+
 def build_library() -> Path:
     """Compile ``csrc/contacts.cu`` for sm_90a unless a build of this exact
     source exists; returns the shared library's path."""
@@ -130,7 +177,7 @@ def _library():
     lib = ctypes.CDLL(str(build_library()))
     fn = lib.pairwise_contacts_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -165,11 +212,14 @@ def pairwise_contacts(x, y, zw, elig, prevw, r_tx2):
     closew = torch.empty((b, n, nw), dtype=torch.int32, device=x.device)
     best = torch.empty((b, n), dtype=torch.int32, device=x.device)
     has = torch.empty((b, n), dtype=torch.bool, device=x.device)
+    if b == 0 or n == 0:
+        return closew, best, has
+    geo = contact_geometry(n)
     with torch.cuda.device(x.device):
         err = _library().pairwise_contacts_launch(
             x.data_ptr(), y.data_ptr(), zw.data_ptr(), elig.data_ptr(),
             prevw.data_ptr(), closew.data_ptr(), best.data_ptr(),
-            has.data_ptr(), b, n, nw, r_tx2,
+            has.data_ptr(), b, n, nw, r_tx2, geo.chunk, geo.smem,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

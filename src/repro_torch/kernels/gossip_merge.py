@@ -50,8 +50,12 @@ output, and reads ``peer`` only on ``success``: 3 or 2 accesses an element
 output in full, ``s`` on every row; ``peer``, ``w`` and ``scale`` are
 needed only on the k selected rows: ``8·R·D + 4·k·D + R + 4·k`` bytes
 (``+ 4·k`` scaled). At the simulator's R = 200 rows of D = 34 that is at
-most some 25 ns at 3.35 TB/s, so a launch costs more than the work; the
-kernels move each of these bytes once and nothing more.
+most some 25 ns at 3.35 TB/s, far below the card's floor for a launch, so
+the row merges are built for that floor: ``gossip_merge_rows`` issues its
+four loads (own, peer, w, s) together and selects with ``s`` (so it also
+reads the unselected rows' peer, and drops what it computes from them),
+with a 32-bit index below 2^31 elements; ``gossip_merge_rows_scaled``
+still loads ``s`` first and the rest only on a selected row.
 """
 
 from __future__ import annotations

@@ -176,3 +176,26 @@ def test_kernel_source_writes_the_reference_orders():
             "                            __fmul_rn(wr, o))") in src
     assert ("__fmaf_rn(__fmul_rn(__fsub_rn(1.f, wr), scale[r]), peer[k],\n"
             "                            __fmul_rn(wr, o))") in src
+
+
+def _row_magic(d: int) -> int:
+    """``csrc/gossip_merge.cu::row_magic``: ceil(2^64 / d), 0 for d = 1."""
+    return 0 if d == 1 else (2**64 - 1) // d + 1
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 34, 306, 1000, 4097, 65537,
+                               2**31 - 1])
+def test_the_kernels_row_index_by_reciprocal_is_exact(d):
+    """``gossip_merge_rows`` finds an element's row by one 64-bit high
+    multiply, ``(k * row_magic(d)) >> 64``, on 32-bit indices below 2^31 -
+    256 (a 64-bit instance divides above): exact for every k < 2^32."""
+    rng = np.random.default_rng(d)
+    ks = np.concatenate([[0, 1, d - 1, d, d + 1, 2**31 - 257, 2**32 - 1],
+                         rng.integers(0, 2**31, 500)]).astype(object)
+    m = _row_magic(d)
+    for k in ks:
+        k = int(k)
+        assert (k if m == 0 else (k * m) >> 64) == k // d
+    src = gm.SOURCE.read_text()
+    assert "~0ull / static_cast<unsigned>(d) + 1" in src
+    assert "if (total <= INT32_MAX - kThreads)" in src
