@@ -28,13 +28,19 @@ Phases (any failure ends the run with a non-zero exit code):
    (Λ = 10, T_T = 5 s; logreg for 1000 slots, the MLP for 320): every
    protocol trace equal bit for bit, CPU vs card and learning vs
    ``learn=None``; the learning traces within tolerance;
-7. free runs on the card — the paper point (N = 200, 8000 slots) and the
-   dense N = 800 point (2000 slots), with wall time, slots/s, launches and
-   sanity checks; then the contact kernel is held against its plain
-   version bit for bit on that point's own inputs (B = 1) and both are
-   timed, beside the kernel's bound; after the paper point, kernel-sweeps
-   does the same for 16 paper-point runs in one launch (B = 16, N = 200,
-   the sweeps' shape);
+7. mf-check and free runs on the card — the paper's analytics (Lemma 1-3
+   fixed point, Theorem-1 DDE, Lemma 4 stored information) solved on the
+   card and held to the CPU's solution within the CPU tests' tolerances;
+   then the paper point's free run of tests/test_sim_vs_meanfield.py
+   (N = 200, 12000 slots, sample every 24, seed 0) and the dense N = 800
+   point (2000 slots), with wall time, slots/s, launches and sanity
+   checks; the contact kernel is held against its plain version bit for
+   bit on that point's own inputs (B = 1) and both are timed, beside the
+   kernel's bound; the paper run's second half must meet that test's five
+   thresholds against the card's analytics, and the batched fixed point
+   and DDE over its λ × M grid are held row by row to the CPU's; after
+   the paper point, kernel-sweeps times 16 paper-point runs in one launch
+   (B = 16, N = 200, the sweeps' shape);
 8. learn-run — the learning point at full width (N = 200, logreg; 8000
    slots) free on the card: accuracy must rise, holders must be no worse
    than the population; the merge kernel is held against its plain
@@ -163,9 +169,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs import get_arch_config  # noqa: E402
 from repro_torch.configs.base import reduced  # noqa: E402
-from repro_torch.configs.fg_paper import DENSITY, paper_params  # noqa: E402
+from repro_torch.configs.fg_paper import (DENSITY,  # noqa: E402
+                                          paper_contact_model,
+                                          paper_params)
 from repro_torch.configs.fg_learn import logreg_task, mlp_task  # noqa: E402
 from repro_torch.core import gossip  # noqa: E402
+from repro_torch.core.capacity import node_stored_information  # noqa: E402
+from repro_torch.core.dde import (  # noqa: E402
+    solve_observation_availability, solve_observation_availability_batch)
+from repro_torch.core.meanfield import (  # noqa: E402
+    solve_fixed_point, solve_fixed_point_batch)
 from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -204,6 +217,18 @@ LEARN_PARAMS = dict(lam=0.05, Lam=10.0, M=1, T_T=5.0)
 #: logits sum in another order on the card; every draw is bit for bit).
 LEARN_TOL = dict(test_acc=(0.0, 2e-3), test_acc_holders=(0.0, 2e-3),
                  learn_obs=(1e-5, 0.0), theta_var=(1e-3, 1e-7))
+#: The free-run check (tests/test_sim_vs_meanfield.py:34-83): the paper
+#: point, 12000 slots sampled every 24, seed 0, the second half of the
+#: samples held to the port's analytics.
+MF_POINT = dict(lam=0.05, M=1)
+MF_CFG = SimConfig(n_slots=12000, sample_every=24)
+#: Card vs CPU analytics, the CPU tests' tolerances against ``repro``
+#: (tests/test_torch_analytics.py): fixed-point fields rtol 1e-5, o(τ) atol
+#: 1e-5, the integral and the stored information rtol 1e-4.
+MF_RTOL, DDE_ATOL, INTEGRAL_RTOL = 1e-5, 1e-5, 1e-4
+MF_FIELDS = ("a", "b", "S", "T_S", "r", "d_M", "d_I", "stability", "rho")
+#: tests/test_meanfield.py:27-29's grid, for the batched solvers.
+MF_GRID = [dict(lam=lam, M=M) for lam in (0.01, 0.05, 0.2) for M in (1, 4)]
 KERNELS = (kc.pairwise_contacts, gm.gossip_merge_rows,
            gm.gossip_merge_rows_scaled, kc.cell_close_words, gm.gossip_merge,
            fa.flash_attention, ks.ssd_scan)
@@ -590,7 +615,7 @@ def free_run(label: str, p, cfg: SimConfig, seed: int = 0,
         f"n_in_rz={n_rz:.3f} (N={p.N:.3f})"))
     profile_slots(label, p, cfg)
     name, = (n for n, v in per_slot.items() if v)
-    return dict(launches=launches[name], **k)
+    return dict(launches=launches[name], out=out, **k)
 
 
 def profiled(run) -> tuple[float, list]:
@@ -613,9 +638,11 @@ def profile_slots(label: str, p, cfg: SimConfig, n_slots: int = 32) -> None:
     a short run: its post-processing walks every event in Python) — the
     device's busy share of the wall time, CUDA kernels per slot, and the
     heaviest kernels. Reports "not measured" if the profiler sees no
-    device time."""
+    device time. The run steps whole samples only, so the counts are per
+    slot it stepped (24 of 32 at the mf-check point's sample_every 24)."""
     short = dataclasses.replace(cfg, n_slots=n_slots,
                                 sample_every=min(cfg.sample_every, n_slots))
+    n_slots = slots_run(short)
     simulate(p, short)
     t_all = time.perf_counter()
     wall_us, dev = profiled(lambda: simulate(p, short))
@@ -632,6 +659,145 @@ def profile_slots(label: str, p, cfg: SimConfig, n_slots: int = 32) -> None:
         f"kernels_per_slot={sum(e.count for e in dev) / n_slots:.1f} top: " +
         "; ".join(f"{e.key[:48]} {e.self_device_time_total / n_slots:.2f}us/slot "
                   f"x{e.count / n_slots:.1f}" for e in top)))
+
+
+# ------------------------------------------------------ the free-run check
+
+def analytics(p, device) -> tuple[dict, float]:
+    """The paper point's Lemma 1-3 fixed point, Theorem-1 DDE and Lemma 4
+    stored information on ``device`` (None: the default, cuda), strict;
+    returns them and the wall seconds of each, synchronised."""
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    cm, t_cm = timed(lambda: paper_contact_model(device=device))
+    sol, t_fp = timed(lambda: solve_fixed_point(p, cm, strict=True))
+    dde, t_dde = timed(lambda: solve_observation_availability(p, sol,
+                                                              strict=True))
+    stored = node_stored_information(p, sol, dde.integral(p.tau_l))
+    return (dict(cm=cm, sol=sol, dde=dde, stored=float(stored)),
+            dict(contact=t_cm, fixed_point=t_fp, dde=t_dde))
+
+
+def held_to_cpu(card, cpu, what: str) -> float:
+    """A mean-field solution (and its DDE) from the card against the CPU's,
+    to the CPU tests' tolerances; returns the largest relative difference
+    of the fixed point's fields."""
+    worst = 0.0
+    for f in MF_FIELDS:
+        got, want = getattr(card["sol"], f).cpu(), getattr(cpu["sol"], f)
+        finite = torch.isfinite(want)
+        if not (torch.equal(torch.isfinite(got), finite)
+                and torch.allclose(got[finite], want[finite], rtol=MF_RTOL,
+                                   atol=1e-30)):
+            raise AssertionError(f"{what}: {f} card {got} vs cpu {want}")
+        rel = (got - want)[finite].abs() / want[finite].abs().clamp_min(1e-30)
+        worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
+    if not torch.equal(card["sol"].converged.cpu(), cpu["sol"].converged):
+        raise AssertionError(f"{what}: converged differs")
+    o_err = float((card["dde"].o.cpu() - cpu["dde"].o).abs().max())
+    if o_err > DDE_ATOL:
+        raise AssertionError(f"{what}: o(tau) differs by {o_err}")
+    return worst
+
+
+def mf_check(seed: int = 0) -> dict:
+    """The main path's free-run check on the card: the paper point's 12000
+    slots (a free run with launch counts, the contact kernel held against
+    its plain version on the run's own inputs, timed, then profiled), the
+    analytics solved on the card and held to the CPU's, the reference
+    test's five thresholds on the card's run, and the batched solvers on
+    the card over tests/test_meanfield.py's grid, each row held to the
+    CPU's."""
+    p = paper_params(**MF_POINT)
+    card, t_card = analytics(p, None)                # default device: cuda
+    cpu, t_cpu = analytics(p, "cpu")
+    if card["sol"].a.device.type != "cuda" or card["dde"].o.device.type != "cuda":
+        raise AssertionError("mf-check: the analytics left the card")
+    fp_rel = held_to_cpu(card, cpu, "mf-check analytics")
+    if not math.isclose(card["stored"], cpu["stored"], rel_tol=INTEGRAL_RTOL):
+        raise AssertionError(f"mf-check: stored information card "
+                             f"{card['stored']} vs cpu {cpu['stored']}")
+
+    run = free_run("paper", p, MF_CFG, seed, tag="mf-check")
+    out = run.pop("out")
+    s0 = len(out.t) // 2
+    sol = card["sol"]
+    a_mf, b_mf = float(sol.a), float(sol.b)
+    n_sim = float(out.n_in_rz[s0:].mean())
+    a_sim = float(out.availability[s0:].mean())
+    b_sim = float(out.busy_frac[s0:].mean())
+    st_sim, st_mf = float(out.stored_info[s0:].mean()), card["stored"]
+    checks = {
+        "population within 5% of N": abs(n_sim - p.N) / p.N < 0.05,
+        "availability within 15%": abs(a_mf - a_sim) / a_sim < 0.15,
+        "a_mf >= a_sim - 0.02": a_mf >= a_sim - 0.02,
+        "busy within 50%": abs(b_mf - b_sim) / max(b_sim, 1e-6) < 0.5,
+        "stored: sim > 0": st_sim > 0,
+        "stored: mf/sim < 2": st_mf / st_sim < 2.0,
+        "stored: mf >= sim - 0.5": st_mf >= st_sim - 0.5,
+        "stability < 0.5": float(sol.stability) < 0.5,
+        "S > 0.95": float(sol.S) > 0.95,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    line = (f"paper point, {MF_CFG.n_slots} slots, second half: "
+            f"a mf={a_mf:.6f} sim={a_sim:.6f}; b mf={b_mf:.6f} "
+            f"sim={b_sim:.6f}; S={float(sol.S):.6f} "
+            f"stability={float(sol.stability):.6f}; stored_info "
+            f"mf={st_mf:.6f} sim={st_sim:.6f}; n_in_rz={n_sim:.3f} "
+            f"(N={p.N:.3f}); card vs cpu max_rel={fp_rel:.3e}; analytics "
+            f"wall on the card: contact {t_card['contact']:.3f}s, fixed "
+            f"point {t_card['fixed_point']:.3f}s, dde "
+            f"{t_card['dde']:.3f}s ({card['dde'].o.numel()} samples); on "
+            f"the cpu: fixed point {t_cpu['fixed_point']:.3f}s, dde "
+            f"{t_cpu['dde']:.3f}s")
+    if failed:
+        raise AssertionError(f"mf-check: {failed} failed; {line}")
+    phase("mf-check", f"all five thresholds hold; {line}")
+    mf_batch(card, cpu)
+    return run
+
+
+def mf_batch(card_point, cpu_point) -> None:
+    """The batched fixed point and DDE on the card over the λ × M grid:
+    each row held to the CPU's batch, and the paper point's row to the
+    card's scalar solve bit for bit."""
+    ps = [paper_params(**kw) for kw in MF_GRID]
+    cm_card, cm_cpu = card_point["cm"], cpu_point["cm"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sols = solve_fixed_point_batch(ps, cm_card, strict=True)
+    torch.cuda.synchronize()
+    t_fp = time.perf_counter() - t
+    t = time.perf_counter()
+    dde = solve_observation_availability_batch(ps, sols, strict=True)
+    torch.cuda.synchronize()
+    t_dde = time.perf_counter() - t
+    cpu_sols = solve_fixed_point_batch(ps, cm_cpu, strict=True)
+    cpu_dde = solve_observation_availability_batch(ps, cpu_sols, strict=True)
+    worst = held_to_cpu(dict(sol=sols, dde=dde), dict(sol=cpu_sols,
+                                                      dde=cpu_dde),
+                        "mf-check batch")
+    ints = dde.integral(torch.tensor([p.tau_l for p in ps], device="cuda"))
+    cpu_ints = cpu_dde.integral(torch.tensor([p.tau_l for p in ps]))
+    if not torch.allclose(ints.cpu(), cpu_ints, rtol=INTEGRAL_RTOL):
+        raise AssertionError(f"mf-check batch: integrals {ints} vs {cpu_ints}")
+    i = MF_GRID.index(MF_POINT)
+    for f in MF_FIELDS:
+        if not torch.equal(getattr(sols, f)[i], getattr(card_point["sol"], f)):
+            raise AssertionError(f"mf-check batch: row {i} {f} != scalar")
+    if not torch.equal(dde.o[i], card_point["dde"].o):
+        raise AssertionError(f"mf-check batch: row {i} o(tau) != scalar")
+    phase("mf-check", (
+        f"batched over lam x M = {len(ps)} points: every row within the "
+        f"CPU tests' tolerances of the CPU's batch (max_rel={worst:.3e}), "
+        f"the paper point's row equal to the scalar solve bit for bit; "
+        f"wall on the card: fixed point {t_fp:.3f}s, dde {t_dde:.3f}s "
+        f"({dde.o.shape[1]} steps x {len(ps)} points); "
+        f"a={[round(float(x), 6) for x in sols.a]}"))
 
 
 # ------------------------------------------------------------ merge kernels
@@ -2365,7 +2531,7 @@ def main() -> int:
     cells_replay()
     learn_replay(logreg_task(), 1000)
     learn_replay(mlp_task(), 320)
-    main_run = free_run("paper", paper_params(lam=0.05, M=1), SimConfig())
+    main_run = mf_check()
     time_sweeps_shape(floor_ms)
     dense_run = free_run("dense-800", *scaled_point(800, 2000))
     cells_vs_dense()

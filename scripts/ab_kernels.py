@@ -1,7 +1,7 @@
 """Hand kernels of two checkouts of the port, on one card.
 
     python3 scripts/ab_kernels.py BEFORE_DIR AFTER_DIR [--rounds 2]
-        [--parts ssd,cells,contacts,merge]
+        [--parts ssd,cells,contacts,merge,scaled]
 
 With the ``ssd`` part, first holds BEFORE's ``ssd_scan`` to AFTER's
 ``chip_smoke.py`` check (``check_ssd_cases``: every case within
@@ -11,7 +11,7 @@ in turn, one process a run, in the order before, after, after, before
 (``--rounds`` such pairs of pairs), so drift of the card and host is
 shared. Each run builds its checkout's kernels into its own ``build/`` and
 measures, with its own ``chip_smoke.py``'s helpers, the parts asked for
-(all four by default):
+(all five by default):
 
 * ``ssd``: ``ssd_scan`` at mamba2-130m's prefill shape (B = 1, S = 8192,
   24 heads of 64, N = 128, G = 1, Q = 128, bf16), device ms in a CUDA
@@ -32,7 +32,12 @@ measures, with its own ``chip_smoke.py``'s helpers, the parts asked for
   and summed device µs a slot over 32 profiled slots;
 * ``merge``: ``gossip_merge_rows`` at R = 200, D = 34, about 60% of the
   rows selected, random w (``chip_smoke.merge_case``, seed 22), held bit
-  for bit to its plain version, device ms.
+  for bit to its plain version, device ms;
+* ``scaled``: ``gossip_merge_rows_scaled`` on the same inputs (scale 1 on
+  about half the rows), each held bit for bit to its plain version, device
+  ms, timed in the order without ``fold``, with, with, without (the first
+  timing of a kernel on fresh tensors has read lower than the ones after
+  it), then without on fresh inputs; and the launch floor.
 
 Prints each run's numbers, then one JSON line with all of them by
 checkout.
@@ -147,6 +152,25 @@ if not torch.equal(got.view(torch.int32),
     raise AssertionError("gossip_merge_rows: kernel != plain version")
 out["merge_rows_ms"] = c.device_ms(
     lambda: c.gm.gossip_merge_rows(own, peer, w, s))
+""", "scaled": """
+c.gm.build_library()
+gen = torch.Generator("cuda").manual_seed(22)
+args = c.merge_case(gen, 200, 34, "mixed", "random")
+for key, fold in (("merge_rows_scaled_ms", False),
+                  ("merge_rows_scaled_fold_ms", True),
+                  ("merge_rows_scaled_fold_2_ms", True),
+                  ("merge_rows_scaled_2_ms", False),
+                  ("merge_rows_scaled_fresh_ms", False)):
+    if key.endswith("fresh_ms"):
+        args = c.merge_case(gen, 200, 34, "mixed", "random")
+    got = c.gm.gossip_merge_rows_scaled(*args, fold=fold)
+    want = c.gm.gossip_merge_rows_scaled_ref(*args, fold=fold)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(key + ": kernel != plain version")
+    out[key] = c.device_ms(
+        lambda: c.gm.gossip_merge_rows_scaled(*args, fold=fold))
+one = torch.empty(1, device="cuda")
+out["launch_floor_ms"] = c.device_ms(lambda: one.fill_(0.0))
 """}
 
 FOOTER = """

@@ -7,3 +7,17 @@ unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead. The package imports neither JAX nor
 ``repro``; its tests hold it against ``repro`` on the same inputs.
 """
+
+import torch as _torch
+
+
+def resolve_device(device, what: str) -> "_torch.device":
+    """``device``, or ``cuda`` when it is None. Raises when ``cuda`` is
+    meant and no card is present: nothing falls back to the CPU."""
+    if device is None:
+        if not _torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain version")
+        return _torch.device("cuda")
+    return _torch.device(device)

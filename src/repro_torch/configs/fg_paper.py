@@ -10,7 +10,9 @@ Derived quantities:
   N (in RZ)   = D * π (100 m)^2 ≈ 157.1
   α (exit)    = 2 D v̄ · 100 (boundary flux through the RZ perimeter)
 
-The analytic contact model of this geometry comes with the analytics.
+``paper_contact_model`` is the analytic contact model of this geometry
+(Random Direction at 1 m/s; its tensors on ``cuda`` unless the caller
+passes ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 
 from repro_torch.core.meanfield import FGParams
+from repro_torch.core.mobility import ContactModel, contact_model_for
 
 AREA_SIDE = 200.0        # m
 RZ_RADIUS = 100.0        # m
@@ -34,6 +37,23 @@ T0_DEFAULT = 0.1         # s connection setup
 
 DENSITY = N_TOTAL / AREA_SIDE**2
 N_RZ = DENSITY * math.pi * RZ_RADIUS**2
+
+
+def paper_contact_model(
+    speed: float = SPEED_DEFAULT,
+    nt: int = 512,
+    mobility: str = "rdm",
+    street_spacing: float = 25.0,
+    device=None,
+) -> ContactModel:
+    """Analytic contact model at the paper geometry, its tensors on
+    ``device`` (default ``cuda``). ``mobility`` names the simulation
+    model whose analytic twin is built; the port has ``rdm``, the paper's
+    own (:data:`repro_torch.core.mobility.CONTACT_MODELS`)."""
+    return contact_model_for(
+        mobility, speed=speed, r_tx=R_TX, density=DENSITY, nt=nt,
+        street_spacing=street_spacing, area_side=AREA_SIDE, device=device,
+    )
 
 
 def paper_params(

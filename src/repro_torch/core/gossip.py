@@ -29,9 +29,9 @@ jitted round: ``fma(1-w, peer, w*own)``, except for float32 leaves of one
 element a replica and the segmented branch's float32 leaves, which are
 ``fma(w, own, (1-w)*peer)`` (the kernel's ``own_first``).
 
-``protocol_from_meanfield`` waits for the analytics slice (ROADMAP §1
-item 1), and replicas across cards (``torch.distributed``) for a slice
-that needs more than one card.
+``protocol_from_meanfield`` sets the gates from a mean-field operating
+point (:mod:`repro_torch.core.meanfield`). Replicas across cards
+(``torch.distributed``) wait for a slice that needs more than one card.
 """
 
 from __future__ import annotations
@@ -49,7 +49,8 @@ from repro_torch.kernels.gossip_merge import gossip_merge
 from repro_torch.tree import tree_map
 
 __all__ = ["GossipConfig", "Gates", "init_gossip_state",
-           "hypercube_matchings", "random_matchings", "build_gossip_round"]
+           "hypercube_matchings", "random_matchings", "build_gossip_round",
+           "protocol_from_meanfield"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,3 +209,17 @@ def build_gossip_round(R: int, cfg: GossipConfig):
 
     round_fn.gates = gates
     return round_fn, R
+
+
+def protocol_from_meanfield(p, sol, *, round_interval: float, **overrides):
+    """A GossipConfig whose gates are a mean-field operating point: per-round
+    transfer success S(a), busy probability b, churn per round α/N · Δt
+    (capped at 1). ``p`` is an ``FGParams``, ``sol`` a
+    ``MeanFieldSolution``; ``overrides`` set any other field."""
+    kw = dict(
+        success_prob=float(sol.S),
+        busy_prob=float(sol.b),
+        churn_prob=min(float(p.alpha / p.N * round_interval), 1.0),
+    )
+    kw.update(overrides)
+    return GossipConfig(**kw)

@@ -1,7 +1,31 @@
-"""The Floating Gossip system parameters (``FGParams``).
+"""Mean-field limit model of Floating Gossip, Lemmas 1-3 (port of
+``repro.core.meanfield``).
 
-Only the parameter record is ported in this slice; the Lemma 1-3 fixed
-point and its solvers come with the analytics.
+* the Lemma 1 fixed point for the steady-state model availability ``a``
+  and node busy probability ``b``, coupled through the transfer-success
+  probability ``S(a)`` and the mean exchange duration ``T_S(a)``;
+* the Lemma 2 merging-task arrival rate ``r = M a S w^2 g (1-b)^2``;
+* the Lemma 3 M/D/1 priority-queue delays ``d_M`` (merging) and ``d_I``
+  (incorporation by training) and the stability condition, Eq. (3).
+
+Notation follows the paper (see :class:`FGParams`); ``T_L = 2 L / C`` is
+the bidirectional exchange of one instance and ``gamma = 2 M w^2 a`` the
+mean number of instances a contact moves.
+
+Arithmetic: float32 tensors on the device of the
+:class:`~repro_torch.core.mobility.ContactModel` (by default ``cuda``).
+Every parameter enters as a float32 tensor (a Python value rounded once,
+as the reference's ``jnp.asarray`` rounds it), every operation is
+elementwise or a :func:`~repro_torch.numerics.row_sum32` over the contact
+grid, and every square root is the correctly rounded float32 root (taken
+in float64). So a batched solve (a leading point axis) computes each
+point with the same operations as the scalar solve, and its rows equal
+the scalar solutions bit for bit, on either device. The reference's
+jitted program contracts some products into fused multiply-adds and sums
+in its own order, so the two agree to float32 rounding, not bit for bit.
+
+The multi-zone, fault-class and contamination solvers of the reference
+come with the slices that need them (ROADMAP queue 1, items 3-5).
 """
 
 from __future__ import annotations
@@ -9,9 +33,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.core.zones import ZoneSet
+import numpy as np
+import torch
 
-__all__ = ["FGParams"]
+from repro_torch.core.mobility import ContactModel
+from repro_torch.core.zones import ZoneSet
+from repro_torch.numerics import row_sum32, sqrt32
+
+__all__ = ["FGParams", "MeanFieldSolution", "transfer_stats",
+           "solve_fixed_point", "solve_fixed_point_batch",
+           "merge_arrival_rate", "queueing_delays", "stability_lhs"]
+
+_EPS = 1e-12
+#: The parameter fields the solvers read, as float32 tensors.
+_FIELDS = ("N", "alpha", "lam", "Lam", "M", "w", "T_T", "T_M", "t0", "T_L")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +85,278 @@ class FGParams:
 
     def replace(self, **kw) -> "FGParams":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeanFieldSolution:
+    """Steady-state mean-field operating point (output of Lemmas 1-3):
+    0-d float32 tensors, or ``(P,)`` from :func:`solve_fixed_point_batch`."""
+
+    a: torch.Tensor        # model availability
+    b: torch.Tensor        # busy probability
+    S: torch.Tensor        # transfer success probability S(a)
+    T_S: torch.Tensor      # mean exchange time T_S(a) [s]
+    r: torch.Tensor        # merging-task arrival rate [1/s]
+    d_M: torch.Tensor      # mean merge delay [s]
+    d_I: torch.Tensor      # mean incorporation delay [s]
+    stability: torch.Tensor  # LHS of Eq. (3); stable iff <= 1
+    rho: torch.Tensor      # compute utilization r*T_M + (Mwλ Λ/N)*T_T
+    # the post-loop residual |body(a) - a| of the damped iteration and its
+    # verdict residual <= tol
+    converged: Any = None
+    residual: Any = None
+
+    @property
+    def stable(self) -> torch.Tensor:
+        return self.stability <= 1.0
+
+    def point(self, i: int) -> "MeanFieldSolution":
+        """Scalar slice of a batched solution."""
+        return MeanFieldSolution(**{
+            f.name: (None if getattr(self, f.name) is None
+                     else getattr(self, f.name)[i])
+            for f in dataclasses.fields(self)})
+
+
+def _param_tensors(ps: list[FGParams], device, batched: bool) -> dict:
+    """The solver's parameters as float32 tensors on ``device``: ``(P,)``
+    over ``ps`` when ``batched``, else 0-d from the one point."""
+    out = {}
+    for name in _FIELDS:
+        vals = [float(getattr(p, name)) for p in ps]
+        out[name] = torch.tensor(vals if batched else vals[0],
+                                 dtype=torch.float32, device=device)
+    return out
+
+
+def _transfer_stats_core(a, *, M, w, t0, T_L, t_grid, pdf, weights,
+                         fail_rate=None):
+    """Lemma 1's integrals ``(S(a), T_S(a))`` over the contact grid, for
+    ``a`` and the parameters of shape ``(...)``.
+
+    A contact of duration t_c succeeds for a given instance with
+    probability min(1, floor((t_c - t0)/T_L) / gamma) and occupies the
+    pair for min(t_c, gamma*T_L + t0). ``fail_rate`` (the per-link-end
+    failure rate [1/s]; None = the paper's formulas) folds mid-transfer
+    link failure at ``mu = 2*fail_rate`` into both: the success integrand
+    ``exp(-mu t0) (1 - exp(-mu T_L m_eff)) / (mu T_L gamma)`` with ``m_eff
+    = min(n_transferable, gamma)``, the occupation ``(1 - exp(-mu occ)) /
+    mu``. Both sums run over one stacked ``(..., 2, nt)`` tensor."""
+    gamma = torch.clamp_min(2.0 * M * w * w * a, _EPS)[..., None]
+    t0, T_L = torch.as_tensor(t0)[..., None], torch.as_tensor(T_L)[..., None]
+    n_transferable = torch.floor(torch.clamp_min(t_grid - t0, 0.0) / T_L)
+    occupied = torch.minimum(t_grid, gamma * T_L + t0)
+    if fail_rate is None:
+        s_integrand = torch.clamp_max(n_transferable / gamma, 1.0)
+        t_integrand = occupied
+    else:
+        mu = 2.0 * fail_rate
+        m_eff = torch.minimum(n_transferable, gamma)
+        s_integrand = (torch.exp(-mu * t0)
+                       * -torch.expm1(-mu * T_L * m_eff) / (mu * T_L * gamma))
+        t_integrand = -torch.expm1(-mu * occupied) / mu
+    s_term = torch.where(t_grid > t0, s_integrand, 0.0) * pdf * weights
+    t_term = t_integrand * pdf * weights
+    sums = row_sum32(torch.stack(torch.broadcast_tensors(s_term, t_term), -2))
+    return sums[..., 0], sums[..., 1]
+
+
+def transfer_stats(a, p: FGParams, contact: ContactModel, *,
+                   fail_rate=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``S(a)`` and ``T_S(a)`` from Lemma 1 (see :func:`_transfer_stats_core`)."""
+    pd = _param_tensors([p], contact.device, batched=False)
+    a = torch.as_tensor(a, dtype=torch.float32, device=contact.device)
+    return _transfer_stats_core(
+        a, M=pd["M"], w=pd["w"], t0=pd["t0"], T_L=pd["T_L"],
+        t_grid=contact.t_grid, pdf=contact.pdf, weights=contact.weights,
+        fail_rate=fail_rate)
+
+
+def _check_finite_inputs(p: FGParams, contact: ContactModel | None = None):
+    """Reject a NaN or inf parameter up front, naming the field: the damped
+    iteration would otherwise converge to NaN without a word."""
+    bad = [f.name for f in dataclasses.fields(p)
+           if isinstance(getattr(p, f.name), (int, float))
+           and not np.isfinite(getattr(p, f.name))]
+    if contact is not None and not bool(torch.isfinite(contact.g).all()):
+        bad.append("contact.g")
+    if bad:
+        raise ValueError(f"non-finite mean-field solver inputs: {bad}")
+
+
+def _busy_core(T_S, *, g, alpha, N):
+    """Lemma 1's busy probability b = K - sqrt(K^2 - 1), K = 1 + 1/(4 g
+    T_S) + alpha/(2 g N). ``T_S`` must already be clamped away from 0."""
+    K = 1.0 + 1.0 / (4.0 * g * T_S) + alpha / (2.0 * g * N)
+    return K - sqrt32(torch.clamp_min(K * K - 1.0, 0.0))
+
+
+def _fixed_point_iterate(a0, pd: dict, t_grid, pdf, weights, g, iters: int):
+    """Damped fixed-point iteration on Eq. (1), ``iters`` steps from
+    ``a0``. Returns ``(a, b, S, T_S, residual)``; the residual is the size
+    of one further damped step, ``|body(a) - a|``, so an exit at the
+    iteration cap that has not contracted shows."""
+    N, alpha, lam, Lam, w = pd["N"], pd["alpha"], pd["lam"], pd["Lam"], pd["w"]
+
+    def stats(a):
+        S, T_S = _transfer_stats_core(
+            a, M=pd["M"], w=w, t0=pd["t0"], T_L=pd["T_L"], t_grid=t_grid,
+            pdf=pdf, weights=weights)
+        return torch.clamp_min(S, _EPS), torch.clamp_min(T_S, _EPS)
+
+    def busy(T_S):
+        return torch.clamp_min(_busy_core(T_S, g=g, alpha=alpha, N=N), _EPS)
+
+    def body(a):
+        S, T_S = stats(a)
+        denom = busy(T_S) * N * S * w
+        H = 1.0 - T_S * (alpha + lam * Lam) / denom
+        a_new = 0.5 * (H + sqrt32(H * H + 4.0 * T_S * lam * Lam / denom))
+        a_new = torch.clamp(a_new, _EPS, 1.0)
+        return 0.5 * a + 0.5 * a_new  # damping for robustness
+
+    a = a0
+    for _ in range(iters):
+        a = body(a)
+    residual = torch.abs(body(a) - a)
+    S, T_S = stats(a)
+    return a, busy(T_S), S, T_S, residual
+
+
+def _strict_check(converged, residual, *, what: str, iters: int, tol: float):
+    conv = np.asarray(converged.cpu())
+    if not bool(np.all(conv)):
+        res = np.asarray(residual.cpu())
+        raise RuntimeError(
+            f"{what} did not converge: max residual {float(np.max(res)):.3e}"
+            f" > tol {tol:.1e} after {iters} damped iterations "
+            f"({int(np.sum(~conv))} of {res.size} point(s)); raise iters= or "
+            "loosen tol=")
+
+
+def _merge_rate(a, b, S, *, M, w, g):
+    """Lemma 2: r = M a S w^2 g (1 - b)^2."""
+    omb = 1.0 - b
+    return M * a * S * w * w * g * (omb * omb)
+
+
+def _delays(r, *, M, w, lam, Lam, N, T_T, T_M):
+    """Eq. (4), +inf outside the stability region."""
+    lam_t = M * w * lam * Lam / N  # training-task arrival rate
+    rho_m = r * T_M
+    rho_t = lam_t * T_T
+    ok = (rho_m < 1.0) & (rho_t < 1.0)
+    safe_m = torch.where(ok, 1.0 - rho_m, 1.0)
+    safe_t = torch.where(ok, 1.0 - rho_t, 1.0)
+    d_M = T_M + r * (T_M * T_M) / (2.0 * safe_m) + lam_t * (T_T * T_T)
+    d_I = (r * (T_M * T_M) / (2.0 * safe_m) + T_T
+           + lam_t * (T_T * T_T) / (2.0 * safe_t)) / safe_m
+    return (torch.where(ok, d_M, float("inf")),
+            torch.where(ok, d_I, float("inf")))
+
+
+def _stability(r, *, M, w, lam, Lam, N, alpha, T_T, T_M):
+    """Eq. (3)'s LHS (+inf outside the stability region) and the
+    utilization rho."""
+    lam_t = M * w * lam * Lam / N
+    rho = r * T_M + lam_t * T_T
+    rho_m = r * T_M
+    rho_t = lam_t * T_T
+    ok = (rho_m < 1.0) & (rho_t < 1.0)
+    safe_m = torch.where(ok, 1.0 - rho_m, 1.0)
+    safe_t = torch.where(ok, 1.0 - rho_t, 1.0)
+    sojourn = N / alpha
+    term2 = (1.0 / (sojourn * 2.0 * safe_m)
+             * (r * (T_M * T_M) / safe_m + T_T * (2.0 - rho_t) / safe_t))
+    lhs = torch.maximum(rho, term2)
+    return torch.where(ok, lhs, float("inf")), rho
+
+
+def _solution(a, b, S, T_S, residual, pd: dict, g, *, tol: float,
+              strict: bool, what: str, iters: int) -> MeanFieldSolution:
+    """Lemmas 2-3 at the fixed point, shared by the scalar and batched
+    solvers."""
+    converged = residual <= tol
+    if strict:
+        _strict_check(converged, residual, what=what, iters=iters, tol=tol)
+    kw = dict(M=pd["M"], w=pd["w"], lam=pd["lam"], Lam=pd["Lam"], N=pd["N"],
+              T_T=pd["T_T"], T_M=pd["T_M"])
+    r = _merge_rate(a, b, S, M=pd["M"], w=pd["w"], g=g)
+    d_M, d_I = _delays(r, **kw)
+    lhs, rho = _stability(r, alpha=pd["alpha"], **kw)
+    return MeanFieldSolution(a=a, b=b, S=S, T_S=T_S, r=r, d_M=d_M, d_I=d_I,
+                             stability=lhs, rho=rho, converged=converged,
+                             residual=residual)
+
+
+def solve_fixed_point(p: FGParams, contact: ContactModel, *, iters: int = 200,
+                      tol: float = 1e-6, strict: bool = False
+                      ) -> MeanFieldSolution:
+    """Solve the Lemma 1 fixed point and derive Lemma 2-3 quantities, on
+    the contact model's device.
+
+    Every trajectory converges to the unique solution (Lemma 1), so damped
+    iteration from a = 0.5 suffices. The solution carries ``converged``
+    (post-loop residual <= ``tol``) and ``residual``; ``strict=True``
+    raises instead of returning an unconverged point. Non-finite inputs
+    raise ``ValueError`` naming the field."""
+    _check_finite_inputs(p, contact)
+    pd = _param_tensors([p], contact.device, batched=False)
+    a0 = torch.tensor(0.5, dtype=torch.float32, device=contact.device)
+    a, b, S, T_S, residual = _fixed_point_iterate(
+        a0, pd, contact.t_grid, contact.pdf, contact.weights, contact.g,
+        iters)
+    return _solution(a, b, S, T_S, residual, pd, contact.g, tol=tol,
+                     strict=strict, what="solve_fixed_point", iters=iters)
+
+
+def solve_fixed_point_batch(ps: list[FGParams], contact: ContactModel, *,
+                            iters: int = 200, tol: float = 1e-6,
+                            strict: bool = False) -> MeanFieldSolution:
+    """Solve Lemmas 1-3 for a whole scenario grid at once: every field of
+    the result carries a leading axis of ``len(ps)``, and row i equals
+    ``solve_fixed_point(ps[i], contact)`` bit for bit. The points share
+    the contact model; every ``FGParams`` field may vary, ``M`` included
+    (here it is arithmetic only)."""
+    for p in ps:
+        _check_finite_inputs(p)
+    _check_finite_inputs(ps[0], contact)
+    pd = _param_tensors(ps, contact.device, batched=True)
+    a0 = torch.full((len(ps),), 0.5, dtype=torch.float32,
+                    device=contact.device)
+    a, b, S, T_S, residual = _fixed_point_iterate(
+        a0, pd, contact.t_grid, contact.pdf, contact.weights, contact.g,
+        iters)
+    return _solution(a, b, S, T_S, residual, pd, contact.g, tol=tol,
+                     strict=strict, what="solve_fixed_point_batch",
+                     iters=iters)
+
+
+def merge_arrival_rate(a, b, S, p: FGParams,
+                       contact: ContactModel) -> torch.Tensor:
+    """Lemma 2: r = M a S w^2 g (1 - b)^2."""
+    pd = _param_tensors([p], contact.device, batched=False)
+    return _merge_rate(a, b, S, M=pd["M"], w=pd["w"], g=contact.g)
+
+
+def queueing_delays(r: torch.Tensor, p: FGParams
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. (4): mean delays of the two-class non-preemptive priority M/D/1
+    (merging first: rate r, service T_M; training: rate M w λ Λ / N,
+    service T_T), as printed; +inf outside the stability region."""
+    pd = _param_tensors([p], r.device, batched=False)
+    return _delays(r, M=pd["M"], w=pd["w"], lam=pd["lam"], Lam=pd["Lam"],
+                   N=pd["N"], T_T=pd["T_T"], T_M=pd["T_M"])
+
+
+def stability_lhs(r: torch.Tensor, d_M, d_I, p: FGParams
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """LHS of the stability condition, Eq. (3) (stable iff <= 1; +inf
+    outside the region), and the utilization. Eq. (3) is ``max(utilization,
+    sojourn-delay term)``; the training rate carries the subscription
+    factor w as in Lemma 3's proof. ``d_M`` and ``d_I`` are accepted for
+    the reference's signature; the formula recomputes them."""
+    pd = _param_tensors([p], r.device, batched=False)
+    return _stability(r, M=pd["M"], w=pd["w"], lam=pd["lam"], Lam=pd["Lam"],
+                      N=pd["N"], alpha=pd["alpha"], T_T=pd["T_T"],
+                      T_M=pd["T_M"])

@@ -22,7 +22,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.numerics import row_sum32
+from repro_torch.numerics import row_sum32, sqrt32
 
 __all__ = ["DefenseConfig", "norm_clip_factors", "distance_accept",
            "clip_peer_counts", "trimmed_peer", "merge_weights"]
@@ -61,9 +61,9 @@ class DefenseConfig:
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis: ``sqrt`` of the squares summed in
-    XLA's order (the float64 root rounded once is the float32 root)."""
-    return torch.sqrt(row_sum32(x * x).double()).float()
+    """Euclidean norm over the last axis: the correctly rounded ``sqrt`` of
+    the squares summed in XLA's order."""
+    return sqrt32(row_sum32(x * x))
 
 
 def norm_clip_factors(peer_theta: torch.Tensor, radius: float):

@@ -55,17 +55,17 @@
 // consecutive threads on consecutive elements of a row (coalesced), and pad
 // nothing (the TPU kernels' (256-row, 128-lane) tiles have no counterpart).
 //
-// gossip_merge_rows' first design (still the scaled kernel's) loaded s[r],
-// branched on it, and only then loaded w[r] and peer[k]: two rounds of
-// loads where one does; and it found the row by a 64-bit division, a chain
-// of dependent instructions ahead of every load. Now own[k], peer[k], w[r] and
-// s[r] are four independent loads issued together and s selects the result
-// (an unselected row is still own's bits: the merged value of a NaN or inf
-// peer is computed and dropped); the row is one 64-bit high multiply by a
-// reciprocal the host computes (row_of), on 32-bit indices, wherever R*D <
-// 2^31 - 256; larger shapes take a second instance with a 64-bit index and
-// a division. Blocks of 256 threads make R = 200, D = 34 a grid of 27
-// blocks, each on an SM of its own, all in one wave.
+// The row merges' first design loaded s[r], branched on it, and only then
+// loaded w[r] (and scale[r]) and peer[k]: two rounds of loads where one
+// does; and it found the row by a 64-bit division, a chain of dependent
+// instructions ahead of every load. Now own[k], peer[k], w[r], s[r] and,
+// scaled, scale[r] are independent loads issued together and s selects the
+// result (an unselected row is still own's bits: the merged value of a NaN
+// or inf peer is computed and dropped); the row is one 64-bit high multiply
+// by a reciprocal the host computes (row_of), on 32-bit indices, wherever
+// R*D < 2^31 - 256; larger shapes take a second instance with a 64-bit
+// index and a division. Blocks of 256 threads make R = 200, D = 34 a grid
+// of 27 blocks, each on an SM of its own, all in one wave.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,6 +114,10 @@ merge_rows_kernel(const float* __restrict__ own,
   out[k] = sel ? m : o;
 }
 
+// The scaled merge in the same design: five loads issued together, the
+// merged value selected by s. Fold picks the operand order (a template
+// parameter, so no branch sits between the loads and the arithmetic).
+template <bool Wide, bool Fold>
 __global__ void __launch_bounds__(kThreads)
 merge_rows_scaled_kernel(const float* __restrict__ own,
                          const float* __restrict__ peer,
@@ -121,20 +125,24 @@ merge_rows_scaled_kernel(const float* __restrict__ own,
                          const float* __restrict__ scale,
                          const uint8_t* __restrict__ s,
                          float* __restrict__ out, int64_t total, int d,
-                         int fold) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+                         unsigned long long magic) {
+  using Idx = typename std::conditional<Wide, int64_t, unsigned>::type;
+  const Idx k = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
   if (k >= total) return;
-  const int64_t r = k / d;
+  Idx r;
+  if constexpr (Wide)
+    r = k / d;
+  else
+    r = row_of(k, magic);
   const float o = own[k];
-  if (!s[r]) {
-    out[k] = o;
-    return;
-  }
+  const float p = peer[k];
   const float wr = w[r];
-  out[k] = fold ? __fmaf_rn(__fmul_rn(__fsub_rn(1.f, wr), scale[r]), peer[k],
-                            __fmul_rn(wr, o))
-                : __fmaf_rn(__fsub_rn(1.f, wr), __fmul_rn(scale[r], peer[k]),
-                            __fmul_rn(wr, o));
+  const float c = scale[r];
+  const bool sel = s[r] != 0;
+  const float m =
+      Fold ? __fmaf_rn(__fmul_rn(__fsub_rn(1.f, wr), c), p, __fmul_rn(wr, o))
+           : __fmaf_rn(__fsub_rn(1.f, wr), __fmul_rn(c, p), __fmul_rn(wr, o));
+  out[k] = sel ? m : o;
 }
 
 unsigned blocks(int64_t total) {
@@ -258,12 +266,21 @@ extern "C" int gossip_merge_rows_scaled_launch(const void* own,
                                                int fold, void* stream) {
   const int64_t total = static_cast<int64_t>(rows) * d;
   if (total == 0) return 0;
-  merge_rows_scaled_kernel<<<blocks(total), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(own), static_cast<const float*>(peer),
-      static_cast<const float*>(w), static_cast<const float*>(scale),
-      static_cast<const uint8_t*>(s), static_cast<float*>(out), total, d,
-      fold);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* o = static_cast<const float*>(own);
+  const float* p = static_cast<const float*>(peer);
+  const float* wf = static_cast<const float*>(w);
+  const float* cf = static_cast<const float*>(scale);
+  const uint8_t* sf = static_cast<const uint8_t*>(s);
+  float* r = static_cast<float*>(out);
+  const bool wide = total > INT32_MAX - kThreads;
+  const unsigned long long magic = wide ? 0 : row_magic(d);
+  auto* kernel = wide ? (fold ? merge_rows_scaled_kernel<true, true>
+                              : merge_rows_scaled_kernel<true, false>)
+                      : (fold ? merge_rows_scaled_kernel<false, true>
+                              : merge_rows_scaled_kernel<false, false>);
+  kernel<<<blocks(total), kThreads, 0, st>>>(o, p, wf, cf, sf, r, total, d,
+                                             magic);
   return static_cast<int>(cudaGetLastError());
 }
 

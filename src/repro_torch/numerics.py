@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["fma32", "log32", "log1p32", "erfinv32", "row_sum32", "mean32",
-           "linspace32"]
+           "linspace32", "sqrt32"]
 
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -188,3 +188,10 @@ def linspace32(start: float, stop: float, n: int,
                  (1.0 - i * r) * start)
     return torch.cat([head, torch.full((1,), stop, dtype=torch.float32,
                                        device=device)])
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root on either device: the
+    float64 root rounded to float32 (the CPU's vectorized float32 root is
+    an ulp off on some inputs, the scalar one is not)."""
+    return torch.sqrt(x.double()).float()

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch import resolve_device
 from repro_torch.core.meanfield import FGParams
 from repro_torch.core.zones import ZoneSet, single_zone
 from repro_torch.kernels.contacts import zone_words
@@ -187,16 +188,6 @@ def _zone_member(pos, zs: ZoneSet):
     dy = pos[..., 1] - cy
     d = torch.sqrt(fma32(dy, dy, dx * dx))
     return (d <= float(np.float32(zs.radii[0])))[..., None]
-
-
-def _resolve_device(device):
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "simulate runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run the plain version")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _mobility(cfg: SimConfig, positions, device):
@@ -407,7 +398,7 @@ def mobility_track(cfg: SimConfig, seed: int = 0, device=None) -> np.ndarray:
     """``(n_slots + 1, N, 2)`` positions of ``cfg.mobility`` under the
     engine's key schedule (what ``simulate`` moves the nodes through), for
     replaying with ``mobility="replay"``."""
-    device = _resolve_device(device)
+    device = resolve_device(device, "simulate")
     model = get_mobility(cfg.mobility)
     key = jr.PRNGKey(seed, device=device)[None]
     mob, key = model.init(key, cfg)
@@ -428,7 +419,7 @@ def simulate(p: FGParams, cfg: SimConfig, seed: int = 0, device=None,
     ``task`` (a ``repro_torch.sim.learn.LearnTask``, e.g. from
     ``task_from_numpy``) replaces the one drawn from ``cfg.learn``."""
     M = _check_supported(p, cfg)
-    device = _resolve_device(device)
+    device = resolve_device(device, "simulate")
     model = _mobility(cfg, positions, device)
     key = jr.PRNGKey(seed, device=device)[None]
     if task is not None:

@@ -38,7 +38,10 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.core.gossip", "repro_torch.tree",
                  "repro_torch.kernels.flash_attention", "repro_torch.serve",
                  "repro_torch.serve.engine", "repro_torch.models.mamba",
-                 "repro_torch.kernels.ssd_scan"):
+                 "repro_torch.kernels.ssd_scan", "repro_torch.core.mobility",
+                 "repro_torch.core.meanfield", "repro_torch.core.dde",
+                 "repro_torch.core.capacity", "repro_torch.core.staleness",
+                 "repro_torch.configs.fg_paper"):
         assert name in modules, name
     code = "\n".join([
         "import importlib, sys",

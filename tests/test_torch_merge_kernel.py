@@ -172,10 +172,20 @@ def test_kernel_source_writes_the_reference_orders():
     """The CUDA source spells the two orders the plain versions pin."""
     src = gm.SOURCE.read_text()
     assert "__fmaf_rn(__fsub_rn(1.f, wr), peer[k], __fmul_rn(wr, o))" in src
-    assert ("__fmaf_rn(__fsub_rn(1.f, wr), __fmul_rn(scale[r], peer[k]),\n"
-            "                            __fmul_rn(wr, o))") in src
-    assert ("__fmaf_rn(__fmul_rn(__fsub_rn(1.f, wr), scale[r]), peer[k],\n"
-            "                            __fmul_rn(wr, o))") in src
+    scaled = src[src.index("merge_rows_scaled_kernel(const float*"):]
+    scaled = scaled[:scaled.index("\n}\n")]
+    assert ("Fold ? __fmaf_rn(__fmul_rn(__fsub_rn(1.f, wr), c), p, "
+            "__fmul_rn(wr, o))") in scaled
+    assert (": __fmaf_rn(__fsub_rn(1.f, wr), __fmul_rn(c, p), "
+            "__fmul_rn(wr, o))") in scaled
+    # Every load before the select, the row by the reciprocal, no branch
+    # on s: an unselected row is own's bits by the select alone.
+    for load in ("own[k]", "peer[k]", "w[r]", "scale[r]", "s[r] != 0"):
+        assert load in scaled, load
+    assert "r = row_of(k, magic);" in scaled
+    assert "out[k] = sel ? m : o;" in scaled
+    assert "if (!s[r])" not in scaled and "return;\n  }" not in scaled
+    assert "template <bool Wide, bool Fold>" in src
 
 
 def _row_magic(d: int) -> int:
