@@ -31,17 +31,33 @@ Phases (any failure ends the run with a non-zero exit code):
 7. mf-check and free runs on the card — the paper's analytics (Lemma 1-3
    fixed point, Theorem-1 DDE, Lemma 4 stored information) solved on the
    card and held to the CPU's solution within the CPU tests' tolerances;
-   then the paper point's free run of tests/test_sim_vs_meanfield.py
-   (N = 200, 12000 slots, sample every 24, seed 0) and the dense N = 800
-   point (2000 slots), with wall time, slots/s, launches and sanity
-   checks; the contact kernel is held against its plain version bit for
-   bit on that point's own inputs (B = 1) and both are timed, beside the
-   kernel's bound; the paper run's second half must meet that test's five
-   thresholds against the card's analytics, and the batched fixed point
-   and DDE over its λ × M grid are held row by row to the CPU's; after
-   the paper point, kernel-sweeps times 16 paper-point runs in one launch
-   (B = 16, N = 200, the sweeps' shape);
-8. learn-run — the learning point at full width (N = 200, logreg; 8000
+   then Fig. 1's grid (benchmarks/fig1_availability.py:30-42: (T_T, T_M)
+   in {(5, 2.5), (0.5, 0.25)} x L in {10, 50, 100, 500} kb, λ = 0.05,
+   M = 1) x seeds 0 and 1 as ONE sweep (``repro_torch.sim.sweep``, B =
+   16, N = 200, 12000 slots sampled every 24): one contact-kernel launch
+   a slot for all 16 rows, every row's a, busy and stored information
+   printed beside the batched mean field, the paper point's seed-0 row
+   held to tests/test_sim_vs_meanfield.py's five thresholds against the
+   card's analytics, slots/s and run-slots/s (slots/s x B), the kernel
+   held against its plain version bit for bit on the sweep's last B = 16
+   inputs and timed beside its bound, a profile of the sweep; the batched
+   fixed point and DDE over tests/test_meanfield.py's λ × M grid held row
+   by row to the CPU's; kernel-sweeps times 16 paper-point runs in one
+   launch; then the dense N = 800 point (2000 slots) free, with wall
+   time, slots/s, launches and sanity checks;
+7a. the sweep phases, over λ in {0.02, 0.05, 0.2} x seeds 0 and 1 at the
+   paper geometry: sweep-rows (500 slots: rows (0, 0) and (2, 1) equal
+   B = 1 card runs bit for bit on every trace); sweep-replay (304 slots,
+   each seed's positions replayed: the card's sweep equals the CPU's bit
+   for bit); sweep-reduce (160 slots, chunks of 2 scenarios padded to 4:
+   the mean, final, quantiles and o_tau sweeps against numpy's
+   reductions of the trace sweep within ``REDUCE_TOL``, final samples
+   and o_tau_den exact; a checkpointed sweep resumed after losing its
+   second chunk file, bit for bit with the plain one); sweep-learn (a
+   2 x 2 logreg learning sweep, 320 slots, and a 2 x 2 cells sweep at
+   N = 1024, 304 slots: rows bit for bit with B = 1 card runs on the
+   protocol traces, learning traces within ``LEARN_TOL``);
+8. learn-run — the learning point at full width (N = 200, logreg; 2000
    slots) free on the card: accuracy must rise, holders must be no worse
    than the population; the merge kernel is held against its plain
    version on the run's own merge inputs and timed; then a defended run
@@ -140,7 +156,7 @@ Phases (any failure ends the run with a non-zero exit code):
     decode logits vs the prefill's, wall per step, a profile of 8 steps.
 
 Phases 9-12 run beside the older ones: 9 after 4, 10 after 5, 11 and 12
-after 7; 13 runs after 4, 14-16 after the others, then 17-20, and 21-24
+after 7a; 13 runs after 4, 14-16 after the others, then 17-20, and 21-24
 last.
 
 The line before the last is the per-kernel JSON record; the last line is
@@ -158,6 +174,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -181,6 +198,7 @@ from repro_torch.core.meanfield import (  # noqa: E402
     solve_fixed_point, solve_fixed_point_batch)
 from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
+from repro_torch.kernels.build import BUILD_DIR  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gossip_merge as gm  # noqa: E402
 from repro_torch.kernels import ssd_scan as ks  # noqa: E402
@@ -195,6 +213,8 @@ from repro_torch.models.transformer import (  # noqa: E402
 from repro_torch.serve import (ServeEngine, make_decode_step,  # noqa: E402
                                make_prefill_step)
 from repro_torch.sim import cells as sim_cells  # noqa: E402
+from repro_torch.sim import contacts as sim_contacts  # noqa: E402
+from repro_torch.sim import sweep  # noqa: E402
 from repro_torch.sim import learn as learning  # noqa: E402
 from repro_torch.sim.compute import pack_mask  # noqa: E402
 from repro_torch.sim.engine import (SimConfig, _zone_member,  # noqa: E402
@@ -222,6 +242,12 @@ LEARN_TOL = dict(test_acc=(0.0, 2e-3), test_acc_holders=(0.0, 2e-3),
 #: samples held to the port's analytics.
 MF_POINT = dict(lam=0.05, M=1)
 MF_CFG = SimConfig(n_slots=12000, sample_every=24)
+#: ... run as one sweep over Fig. 1's grid (benchmarks/fig1_availability.py
+#: :30-42: (T_T, T_M) variants x model sizes L, λ = 0.05, M = 1) and two
+#: seeds: B = 16 rows, the paper point's seed 0 first.
+FIG1_VARIANTS = ((5.0, 2.5), (0.5, 0.25))
+FIG1_LS = (10e3, 50e3, 100e3, 500e3)
+MF_SEEDS = (0, 1)
 #: Card vs CPU analytics, the CPU tests' tolerances against ``repro``
 #: (tests/test_torch_analytics.py): fixed-point fields rtol 1e-5, o(τ) atol
 #: 1e-5, the integral and the stored information rtol 1e-4.
@@ -508,8 +534,14 @@ def time_kernel(cfg: SimConfig, seed: int, b: int = 1) -> dict:
     main path's own inputs at ``cfg`` (``b`` runs, seeds ``seed`` on,
     stacked on the batch axis), then times both."""
     items = [main_path_inputs(cfg, seed + k) for k in range(b)]
-    r_tx2 = items[0][1]
     args = tuple(torch.cat([a[i] for a, _ in items]) for i in range(5))
+    return time_kernel_args(args, items[0][1], "the path's inputs")
+
+
+def time_kernel_args(args, r_tx2: float, on: str) -> dict:
+    """The kernel against its plain version, bit for bit, on the inputs
+    ``(x, y, zw, elig, prevw)`` (``on`` says whose), then both timed."""
+    args = tuple(args[:5])
 
     def kernel():
         return kc.pairwise_contacts(*args, r_tx2)
@@ -521,11 +553,10 @@ def time_kernel(cfg: SimConfig, seed: int, b: int = 1) -> dict:
     torch.cuda.synchronize()
     for g, w, name in zip(got, want, ("closew", "best_j", "has")):
         if not torch.equal(g, w):
-            raise AssertionError(
-                f"kernel != plain on {name} at the main path's inputs, "
-                f"N={cfg.n_nodes} B={b}")
-    bound_ms, bound_by = kernel_bound_ms(b, cfg.n_nodes)
-    return dict(on="the path's inputs", max_abs_err=max_abs_err(got, want),
+            raise AssertionError(f"kernel != plain on {name} at {on}, "
+                                 f"(B, N)={tuple(args[0].shape)}")
+    bound_ms, bound_by = kernel_bound_ms(*args[0].shape)
+    return dict(on=on, max_abs_err=max_abs_err(got, want),
                 ms=device_ms(kernel), plain_ms=device_ms(plain),
                 call_ms=call_ms(kernel), plain_call_ms=call_ms(plain),
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -633,19 +664,25 @@ def profiled(run) -> tuple[float, list]:
                      if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profile_slots(label: str, p, cfg: SimConfig, n_slots: int = 32) -> None:
+def profile_slots(label: str, p, cfg: SimConfig, n_slots: int = 32,
+                  run=None) -> None:
     """Where a slot's time goes: ``torch.profiler`` (device activity only,
     a short run: its post-processing walks every event in Python) — the
     device's busy share of the wall time, CUDA kernels per slot, and the
     heaviest kernels. Reports "not measured" if the profiler sees no
     device time. The run steps whole samples only, so the counts are per
-    slot it stepped (24 of 32 at the mf-check point's sample_every 24)."""
+    slot it stepped (24 of 32 at the mf-check point's sample_every 24).
+    ``run(cfg)`` runs the short configuration (default: ``simulate`` of
+    ``p``; a sweep profiles all its rows' slots together)."""
     short = dataclasses.replace(cfg, n_slots=n_slots,
                                 sample_every=min(cfg.sample_every, n_slots))
     n_slots = slots_run(short)
-    simulate(p, short)
+    if run is None:
+        def run(c):
+            return simulate(p, c)
+    run(short)
     t_all = time.perf_counter()
-    wall_us, dev = profiled(lambda: simulate(p, short))
+    wall_us, dev = profiled(lambda: run(short))
     busy_us = sum(e.self_device_time_total for e in dev)
     if busy_us <= 0:
         phase("profile", f"{label}: device time not measured")
@@ -704,15 +741,29 @@ def held_to_cpu(card, cpu, what: str) -> float:
     return worst
 
 
-def mf_check(seed: int = 0) -> dict:
-    """The main path's free-run check on the card: the paper point's 12000
-    slots (a free run with launch counts, the contact kernel held against
-    its plain version on the run's own inputs, timed, then profiled), the
-    analytics solved on the card and held to the CPU's, the reference
-    test's five thresholds on the card's run, and the batched solvers on
-    the card over tests/test_meanfield.py's grid, each row held to the
-    CPU's."""
+def fig1_grid() -> list:
+    """benchmarks/fig1_availability.py:30-42's full grid: the two service
+    time variants x four model sizes, λ = 0.05, M = 1; the first point is
+    the paper point."""
+    return [paper_params(**MF_POINT, T_T=t_t, T_M=t_m, L=size)
+            for t_t, t_m in FIG1_VARIANTS for size in FIG1_LS]
+
+
+def mf_check() -> dict:
+    """The main path's free-run check on the card, as one sweep: Fig. 1's
+    grid x seeds (0, 1) (B = 16, 12000 slots each) in one slot loop, one
+    contact-kernel launch a slot for all 16 rows; the paper point's seed-0
+    row held to the reference test's five thresholds against the card's
+    analytics (themselves held to the CPU's); every row's a, busy and
+    stored information against Fig. 1's mean field; the contact kernel
+    held against its plain version on the sweep's last B = 16 inputs and
+    timed; a profile of the sweep; the batched solvers over
+    tests/test_meanfield.py's grid held row by row to the CPU's."""
+    ps = fig1_grid()
     p = paper_params(**MF_POINT)
+    if ps[0] != p:
+        raise AssertionError("mf-check: Fig. 1's first point is not the "
+                             "paper point")
     card, t_card = analytics(p, None)                # default device: cuda
     cpu, t_cpu = analytics(p, "cpu")
     if card["sol"].a.device.type != "cuda" or card["dde"].o.device.type != "cuda":
@@ -722,15 +773,37 @@ def mf_check(seed: int = 0) -> dict:
         raise AssertionError(f"mf-check: stored information card "
                              f"{card['stored']} vs cpu {cpu['stored']}")
 
-    run = free_run("paper", p, MF_CFG, seed, tag="mf-check")
-    out = run.pop("out")
-    s0 = len(out.t) // 2
+    b = len(ps) * len(MF_SEEDS)
+    with Recorder("pairwise_contacts", keep=1, module=sim_contacts) as rec:
+        reset_counts()
+        t = time.perf_counter()
+        batch = sweep.run(ps, MF_CFG, MF_SEEDS)       # default device: cuda
+        wall = time.perf_counter() - t
+        launches = counts()
+    if launches != per_run(DENSE_ONLY, slots_run(MF_CFG)):
+        raise AssertionError(f"mf-check: launches {launches}, want one "
+                             f"pairwise_contacts a slot for all {b} rows")
+    (args, _), = rec.calls
+    if args[0].shape != (b, MF_CFG.n_nodes):
+        raise AssertionError(f"mf-check: the kernel ran at {args[0].shape}")
+    s_count = MF_CFG.n_slots // MF_CFG.sample_every
+    for name in ("availability", "stored_info", "busy_frac"):
+        arr = getattr(batch, name)
+        if arr.shape[:3] != (len(ps), len(MF_SEEDS), s_count) \
+                or not np.all(np.isfinite(arr)):
+            raise AssertionError(f"mf-check: {name} {arr.shape} not finite")
+    half = s_count // 2
+    n_rows = batch.n_in_rz[:, :, half:].mean(-1)
+    if np.any(np.abs(n_rows - p.N) / p.N >= 0.05):
+        raise AssertionError(f"mf-check: populations {n_rows}")
+
+    out = batch.point(0, 0)
     sol = card["sol"]
     a_mf, b_mf = float(sol.a), float(sol.b)
-    n_sim = float(out.n_in_rz[s0:].mean())
-    a_sim = float(out.availability[s0:].mean())
-    b_sim = float(out.busy_frac[s0:].mean())
-    st_sim, st_mf = float(out.stored_info[s0:].mean()), card["stored"]
+    n_sim = float(out.n_in_rz[half:].mean())
+    a_sim = float(out.availability[half:].mean())
+    b_sim = float(out.busy_frac[half:].mean())
+    st_sim, st_mf = float(out.stored_info[half:].mean()), card["stored"]
     checks = {
         "population within 5% of N": abs(n_sim - p.N) / p.N < 0.05,
         "availability within 15%": abs(a_mf - a_sim) / a_sim < 0.15,
@@ -743,8 +816,40 @@ def mf_check(seed: int = 0) -> dict:
         "S > 0.95": float(sol.S) > 0.95,
     }
     failed = [k for k, ok in checks.items() if not ok]
-    line = (f"paper point, {MF_CFG.n_slots} slots, second half: "
-            f"a mf={a_mf:.6f} sim={a_sim:.6f}; b mf={b_mf:.6f} "
+
+    # Fig. 1's table: the batched fixed point, the batched DDE and the
+    # capacity on the card, against each row's second half (seeds pooled)
+    sols = solve_fixed_point_batch(ps, card["cm"], strict=True)
+    dde = solve_observation_availability_batch(ps, sols, strict=True)
+    rows = []
+    for i, q in enumerate(ps):
+        st = float(node_stored_information(
+            q, sols.point(i), dde.point(i).integral(q.tau_l)))
+        rows.append(
+            f"T_T={q.T_T:g} T_M={q.T_M:g} L={q.L:g}: a mf={float(sols.a[i]):.6f} "
+            f"sim={float(batch.availability[i, :, half:].mean()):.6f}, busy "
+            f"mf={float(sols.b[i]):.6f} "
+            f"sim={float(batch.busy_frac[i, :, half:].mean()):.6f}, stored "
+            f"mf={st:.6f} sim={float(batch.stored_info[i, :, half:].mean()):.6f}")
+    phase("mf-check", (
+        f"Fig. 1 grid, {len(ps)} points x seeds {MF_SEEDS} (B={b}), "
+        f"{MF_CFG.n_slots} slots, second half, mean field vs simulation: "
+        + "; ".join(rows)))
+
+    k = time_kernel_args(args, args[5], f"the sweep's last inputs (B={b})")
+    phase("mf-check", (
+        f"sweep: B={b} N={MF_CFG.n_nodes} slots={MF_CFG.n_slots} "
+        f"wall={wall:.3f}s slots/s={MF_CFG.n_slots / wall:.1f} "
+        f"run-slots/s={b * MF_CFG.n_slots / wall:.1f} launches={launches} "
+        f"kernel==plain on {k['on']} (max_abs_err={k['max_abs_err']}) "
+        f"kernel_us={1e3 * k['ms']:.3f} bound_us={1e3 * k['bound_ms']:.5f} "
+        f"({k['bound_by']}) plain_us={1e3 * k['plain_ms']:.3f} "
+        f"kernel_call_us={1e3 * k['call_ms']:.3f} "
+        f"plain_call_us={1e3 * k['plain_call_ms']:.3f}"))
+    profile_slots(f"fig1 sweep B={b}", p, MF_CFG,
+                  run=lambda c: sweep.run(ps, c, MF_SEEDS))
+    line = (f"paper point (row 0, seed 0), {MF_CFG.n_slots} slots, second "
+            f"half: a mf={a_mf:.6f} sim={a_sim:.6f}; b mf={b_mf:.6f} "
             f"sim={b_sim:.6f}; S={float(sol.S):.6f} "
             f"stability={float(sol.stability):.6f}; stored_info "
             f"mf={st_mf:.6f} sim={st_sim:.6f}; n_in_rz={n_sim:.3f} "
@@ -758,7 +863,7 @@ def mf_check(seed: int = 0) -> dict:
         raise AssertionError(f"mf-check: {failed} failed; {line}")
     phase("mf-check", f"all five thresholds hold; {line}")
     mf_batch(card, cpu)
-    return run
+    return dict(launches=launches["pairwise_contacts"], **k)
 
 
 def mf_batch(card_point, cpu_point) -> None:
@@ -798,6 +903,238 @@ def mf_batch(card_point, cpu_point) -> None:
         f"wall on the card: fixed point {t_fp:.3f}s, dde {t_dde:.3f}s "
         f"({dde.o.shape[1]} steps x {len(ps)} points); "
         f"a={[round(float(x), 6) for x in sols.a]}"))
+
+
+# ------------------------------------------------------------------- sweeps
+
+#: The sweep phases' grid: three observation rates at the paper geometry
+#: (scenario axis) x seeds 0 and 1.
+SWEEP_LAMS = (0.02, 0.05, 0.2)
+SWEEP_SEEDS = (0, 1)
+#: Reductions on the card vs numpy's of the trace (rtol, atol): float32
+#: sums over the samples in another order (the card's reduction kernels
+#: against numpy's pairwise sums); final samples and o_tau_den are exact.
+REDUCE_TOL = (1e-5, 1e-6)
+#: sweep rows' protocol traces, held bit for bit wherever rows are compared
+SWEEP_TRACES = tuple(f for f in TRACES if f != "t")
+
+
+def sweep_grid(**kw) -> list:
+    return [paper_params(lam=lam, M=1, **kw) for lam in SWEEP_LAMS]
+
+
+def same_rows(batch, i: int, j: int, one, what: str,
+              traces=SWEEP_TRACES) -> None:
+    """Row (i, j) of a sweep equal to a single run on every trace."""
+    same_traces(batch.point(i, j), one, f"{what}: row ({i}, {j})", traces)
+
+
+def sweep_rows(n_slots: int = 500) -> None:
+    """A 3 x 2 sweep on the card (one contact launch a slot for its 6
+    rows); rows (0, 0) and (2, 1) equal B = 1 card runs bit for bit."""
+    ps, cfg = sweep_grid(), SimConfig(n_slots=n_slots)
+    reset_counts()
+    t = time.perf_counter()
+    batch = sweep.run(ps, cfg, SWEEP_SEEDS)           # default device: cuda
+    wall = time.perf_counter() - t
+    if counts() != per_run(DENSE_ONLY, slots_run(cfg)):
+        raise AssertionError(f"sweep-rows launches {counts()}")
+    walls = []
+    for i, j in ((0, 0), (2, 1)):
+        t = time.perf_counter()
+        one = simulate(ps[i], cfg, seed=SWEEP_SEEDS[j])
+        walls.append(time.perf_counter() - t)
+        same_rows(batch, i, j, one, "sweep-rows")
+    b = len(ps) * len(SWEEP_SEEDS)
+    phase("sweep-rows", (
+        f"lam {SWEEP_LAMS} x seeds {SWEEP_SEEDS} (B={b}), N=200, "
+        f"{slots_run(cfg)} slots: rows (0, 0) and (2, 1) equal B=1 card runs "
+        f"bit for bit on "
+        f"every trace; launches={counts()['pairwise_contacts']}; sweep "
+        f"{wall:.1f}s ({slots_run(cfg) / wall:.1f} slots/s, "
+        f"{b * slots_run(cfg) / wall:.1f} run-slots/s), B=1 runs "
+        f"{walls[0]:.1f}s and {walls[1]:.1f}s"))
+
+
+def sweep_replay(n_slots: int = 304) -> None:
+    """The same grid with each seed's positions replayed: the card's sweep
+    equals the CPU's bit for bit on every trace."""
+    ps = sweep_grid()
+    cfg = SimConfig(n_slots=n_slots, mobility="replay")
+    tracks = np.stack([mobility_track(dataclasses.replace(cfg, mobility="rdm"),
+                                      seed=s, device="cpu")
+                       for s in SWEEP_SEEDS])
+    t = time.perf_counter()
+    cpu = sweep.run(ps, cfg, SWEEP_SEEDS, device="cpu", positions=tracks)
+    t_cpu = time.perf_counter() - t
+    reset_counts()
+    t = time.perf_counter()
+    gpu = sweep.run(ps, cfg, SWEEP_SEEDS, positions=tracks)
+    t_gpu = time.perf_counter() - t
+    if counts() != per_run(DENSE_ONLY, slots_run(cfg)):
+        raise AssertionError(f"sweep-replay launches {counts()}")
+    same_traces(cpu, gpu, "sweep on the card != on the CPU", SWEEP_TRACES)
+    phase("sweep-replay", (
+        f"lam {SWEEP_LAMS} x seeds {SWEEP_SEEDS}, N=200, {slots_run(cfg)} "
+        f"slots, positions replayed: every trace bit for bit, card vs CPU; "
+        f"launches={counts()['pairwise_contacts']}; cpu {t_cpu:.1f}s, gpu "
+        f"{t_gpu:.1f}s"))
+
+
+def reduced_like_numpy(trace, reduce: str, s0: int, qs) -> dict:
+    """numpy's reduction of a trace sweep's light quantities."""
+    light = dict(availability=trace.availability, busy_frac=trace.busy_frac,
+                 stored=trace.stored_info, model_holders=trace.model_holders,
+                 n_in_rz=trace.n_in_rz, availability_z=trace.availability_z,
+                 stored_z=trace.stored_info_z, n_in_rz_z=trace.n_in_rz_z)
+    out = {}
+    for k, v in light.items():
+        w = v[:, :, s0:].astype(np.float32)
+        if reduce == "mean":
+            out[k], out[k + "_std"] = w.mean(axis=2), w.std(axis=2)
+        elif reduce == "final":
+            out[k] = v[:, :, -1]
+        else:
+            out[k] = np.moveaxis(np.quantile(w, qs, axis=2), 0, -1)
+    return out
+
+
+def o_tau_like_numpy(trace, s0: int, tau) -> tuple:
+    """``(num, den)`` of the o(τ) histograms of a trace sweep, in numpy."""
+    # float32 ages and bins, as the card's reduction computes them
+    age = (trace.t[s0:, None, None].astype(np.float32)
+           - trace.obs_birth[:, :, s0:])
+    frac = trace.obs_holders[:, :, s0:] / np.maximum(
+        trace.model_holders[:, :, s0:], 1)[..., None]
+    with np.errstate(invalid="ignore"):
+        bins = np.floor(age / np.float32(tau[1] - tau[0]))
+    ok = (np.isfinite(age) & (age >= 0)
+          & (trace.model_holders[:, :, s0:] > 0)[..., None]
+          & (bins >= 0) & (bins < len(tau)))
+    num = np.zeros(trace.availability.shape[:2] + (len(tau),), np.float64)
+    den = np.zeros_like(num)
+    for t_i in range(len(tau)):
+        sel = ok & (bins == t_i)
+        num[..., t_i] = np.where(sel, frac, 0.0).sum(axis=(2, 3, 4))
+        den[..., t_i] = sel.sum(axis=(2, 3, 4))
+    return num, den
+
+
+def sweep_reduce(n_slots: int = 160) -> None:
+    """3 scenarios in chunks of 2 (padded to 4) x 2 seeds: the mean,
+    final, quantiles and o_tau sweeps on the card held to numpy's
+    reductions of the trace sweep (``REDUCE_TOL``; final samples and
+    o_tau_den exact); then a checkpointed mean sweep, its second chunk
+    file removed and resumed, bit for bit with the plain one."""
+    ps, cfg = sweep_grid(), SimConfig(n_slots=n_slots)
+    qs, tau = (0.1, 0.5, 0.9), np.arange(0.0, 60.0, 4.0)
+    kw = dict(chunk_size=2)
+    t = time.perf_counter()
+    trace = sweep.run(ps, cfg, SWEEP_SEEDS, **kw)
+    walls = {"trace": time.perf_counter() - t}
+    if trace.plan.n_chunks != 2 or trace.plan.pad_scenarios != 4:
+        raise AssertionError(f"sweep-reduce plan {trace.plan}")
+    worst, runs = {}, {}
+    for reduce in ("mean", "final", "quantiles", "o_tau"):
+        t = time.perf_counter()
+        got = runs[reduce] = sweep.run(
+            ps, cfg, SWEEP_SEEDS, reduce=reduce, quantiles=qs,
+            tau_grid=tau if reduce == "o_tau" else None, **kw)
+        walls[reduce] = time.perf_counter() - t
+        if reduce == "o_tau":
+            num, den = o_tau_like_numpy(trace, got.warmup_samples, tau)
+            if not np.array_equal(got.stats["o_tau_den"], den):
+                raise AssertionError("sweep-reduce: o_tau_den differs")
+            if den.sum() <= 0:
+                raise AssertionError("sweep-reduce: no observation aged")
+            want = {"o_tau_num": num}
+        else:
+            want = reduced_like_numpy(trace, reduce, got.warmup_samples, qs)
+        for k, w in want.items():
+            g = got.stats[k]
+            if reduce == "final":
+                if g.dtype != w.dtype or not np.array_equal(g, w):
+                    raise AssertionError(f"sweep-reduce final {k} differs")
+                continue
+            worst[reduce] = max(worst.get(reduce, 0.0),
+                                close(g, w, *REDUCE_TOL, f"{reduce} {k}"))
+    plain = runs["mean"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as ck:
+        full = sweep.run(ps, cfg, SWEEP_SEEDS, reduce="mean", **kw,
+                         checkpoint_dir=ck)
+        files = sorted(f for f in os.listdir(ck) if f.endswith(".npz"))
+        if len(files) != 2:
+            raise AssertionError(f"sweep-reduce: chunk files {files}")
+        os.remove(os.path.join(ck, files[1]))
+        t = time.perf_counter()
+        resumed = sweep.run(ps, cfg, SWEEP_SEEDS, reduce="mean", **kw,
+                            checkpoint_dir=ck, resume=True)
+        walls["resume"] = time.perf_counter() - t
+    for got in (full, resumed):
+        if set(got.stats) != set(plain.stats) or not all(
+                np.array_equal(got.stats[k], plain.stats[k])
+                for k in plain.stats):
+            raise AssertionError("sweep-reduce: checkpointed sweep differs")
+    if resumed.telemetry["chunks"][0] != {"attempts": 0, "resumed": True}:
+        raise AssertionError(f"sweep-reduce: {resumed.telemetry}")
+    phase("sweep-reduce", (
+        f"lam {SWEEP_LAMS} in chunks of 2 (padded to 4) x seeds "
+        f"{SWEEP_SEEDS}, {slots_run(cfg)} slots: mean/std, quantiles "
+        f"{qs} and o_tau_num vs numpy of the trace sweep max abs diff "
+        f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } within "
+        f"(rtol, atol) {REDUCE_TOL}; final and o_tau_den exact; "
+        f"checkpointed mean sweep and its resume after losing chunk 1 bit "
+        f"for bit with the plain one; host bytes trace {trace.host_bytes}, "
+        f"mean {plain.host_bytes}; walls "
+        f"{ {k: round(v, 1) for k, v in walls.items()} }s"))
+
+
+def sweep_learn(n_slots: int = 320, cells_slots: int = 304) -> None:
+    """A logreg learning sweep (2 x 2) and a cells sweep (N = 1024, 2 x 2)
+    on the card: rows (0, 0) and (1, 1) equal B = 1 card runs, bit for bit
+    on the protocol traces (and ``merge_stats``, ``nbr_overflow``), the
+    learning traces within ``LEARN_TOL``."""
+    base = paper_params(**LEARN_PARAMS)
+    ps = [base, base.replace(lam=0.2)]
+    cfg = SimConfig(n_slots=n_slots, learn=logreg_task())
+    reset_counts()
+    t = time.perf_counter()
+    batch = sweep.run(ps, cfg, SWEEP_SEEDS)
+    wall = time.perf_counter() - t
+    if counts() != per_run(dict(DENSE_ONLY, gossip_merge_rows=1),
+                           slots_run(cfg)):
+        raise AssertionError(f"sweep-learn launches {counts()}")
+    errs = {}
+    for i, j in ((0, 0), (1, 1)):
+        one = simulate(ps[i], cfg, seed=SWEEP_SEEDS[j])
+        same_rows(batch, i, j, one, "sweep-learn",
+                  SWEEP_TRACES + ("merge_stats",))
+        for k in LEARN_TOL:
+            errs[k] = max(errs.get(k, 0.0), close(
+                getattr(batch.point(i, j), k), getattr(one, k),
+                *LEARN_TOL[k], f"sweep-learn {k}"))
+    p_c, cfg_c = scaled_point(1024, cells_slots)
+    ps_c = [p_c, p_c.replace(lam=0.2)]
+    reset_counts()
+    t = time.perf_counter()
+    cells_batch = sweep.run(ps_c, cfg_c, SWEEP_SEEDS)
+    wall_c = time.perf_counter() - t
+    if counts() != per_run(CELLS_ONLY, slots_run(cfg_c)):
+        raise AssertionError(f"sweep-learn cells launches {counts()}")
+    for i, j in ((0, 0), (1, 1)):
+        one = simulate(ps_c[i], cfg_c, seed=SWEEP_SEEDS[j])
+        same_rows(cells_batch, i, j, one, "sweep-learn cells",
+                  SWEEP_TRACES + ("nbr_overflow",))
+    phase("sweep-learn", (
+        f"logreg, lam (0.05, 0.2) x seeds {SWEEP_SEEDS}, N=200, {n_slots} "
+        f"slots: rows (0, 0) and (1, 1) vs B=1 card runs, protocol traces "
+        f"and merge_stats bit for bit, learning traces max abs diff {errs} "
+        f"within {LEARN_TOL}; wall {wall:.1f}s; cells N=1024, "
+        f"{slots_run(cfg_c)} slots, 2 x 2: rows bit for bit with B=1 "
+        f"(cell_close_words launches "
+        f"{slots_run(cfg_c)}, one a slot over the 2 seeds' lists), "
+        f"max nbr_overflow {int(cells_batch.nbr_overflow.max())}, wall "
+        f"{wall_c:.1f}s"))
 
 
 # ------------------------------------------------------------ merge kernels
@@ -1044,9 +1381,10 @@ def learn_replay(lc, n_slots: int, seed: int = 0) -> None:
         f"launches={launches}; cpu {t_cpu:.1f}s, gpu {t_gpu:.1f}s"))
 
 
-def learn_run(seed: int = 0, n_slots: int = 8000) -> dict:
+def learn_run(seed: int = 0, n_slots: int = 2000) -> dict:
     """The learning point at full width, free on the card: the merge
-    kernel's main path."""
+    kernel's main path. 2000 slots: the accuracy check holds on the CPU
+    from 1000 slots on (scripts/learn_rise.py)."""
     p = paper_params(**LEARN_PARAMS)
     cfg = SimConfig(n_slots=n_slots, learn=logreg_task())
     with Recorder("gossip_merge_rows") as rec:
@@ -2533,6 +2871,10 @@ def main() -> int:
     learn_replay(mlp_task(), 320)
     main_run = mf_check()
     time_sweeps_shape(floor_ms)
+    sweep_rows()
+    sweep_replay()
+    sweep_reduce()
+    sweep_learn()
     dense_run = free_run("dense-800", *scaled_point(800, 2000))
     cells_vs_dense()
     cell_run = cells_run()

@@ -107,7 +107,7 @@ def trimmed_peer(own_theta, peer_buf, peer_fill):
 
 
 def merge_weights(policy: str, own_count, peer_count, own_age, peer_age,
-                  tau_l: float):
+                  tau_l):
     """``(w_own, w_peer)`` with ``w_own + w_peer == 1``.
 
     ``obs_count`` divides by ``max(tot, 1)`` as ``repro`` does, so for
@@ -120,7 +120,10 @@ def merge_weights(policy: str, own_count, peer_count, own_age, peer_age,
                             0.5)
     elif policy == "staleness":
         m = torch.minimum(own_age, peer_age)
-        tau = torch.full_like(m, tau_l)      # a true division, as above
+        if torch.is_tensor(tau_l):           # one tau_l a run: (B,)
+            tau = tau_l.reshape(tau_l.shape + (1,) * (m.dim() - 1)).expand_as(m)
+        else:
+            tau = torch.full_like(m, tau_l)  # a true division, as above
         s_own = torch.exp(-(own_age - m) / tau)
         s_peer = torch.exp(-(peer_age - m) / tau)
         w_own = s_own / (s_own + s_peer)

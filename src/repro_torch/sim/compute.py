@@ -15,18 +15,41 @@ lowest occupied slot. Every function maps over any leading batch axes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = [
     "pack_mask", "unpack_mask", "packed_onehot", "packed_any",
     "packed_popcount", "enqueue_ascending", "advance_timers",
-    "pick_next_jobs", "to_int32_bits",
+    "pick_next_jobs", "to_int32_bits", "run_param", "broadcast_rows",
 ]
 
 
 def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2³²) -> int32 with the same 32 bits."""
     return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def run_param(v, nd: int):
+    """A dynamic parameter ready to broadcast against ``(B, ...)`` tensors
+    of ``nd`` dims: a float32 tensor ``(B,)``, one value a run, is viewed
+    as ``(B, 1, ..., 1)``; a Python number is rounded to float32, as
+    ``repro``'s jitted program holds it."""
+    if torch.is_tensor(v):
+        return v.reshape(v.shape + (1,) * (nd - v.dim()))
+    return float(np.float32(v))
+
+
+def broadcast_rows(x: torch.Tensor, b: int) -> torch.Tensor:
+    """``x`` ``(R, ...)``, one row a seed, repeated to ``b`` scenario-major
+    rows (row ``i`` takes seed ``i % R``), contiguous; ``x`` itself when
+    ``R == b``."""
+    r = x.shape[0]
+    if r == b:
+        return x
+    if b % r:
+        raise ValueError(f"{b} rows are not a whole number of {r} seeds")
+    return x.repeat(b // r, *([1] * (x.dim() - 1)))
 
 
 def _bit_weights(device) -> torch.Tensor:
@@ -146,7 +169,8 @@ def advance_timers(serving, serv_left, dt):
 def pick_next_jobs(*, serving, serv_left, serv_model, serv_mask, serv_slot,
                    mq_model, mq_mask, tq_model, tq_slot, T_M, T_T):
     """Assign idle servers their next job: merge queue first (non-preemptive
-    priority), then training. Returns the updated fields as a dict."""
+    priority), then training. ``T_M`` and ``T_T`` are numbers or float32
+    ``(B,)`` tensors. Returns the updated fields as a dict."""
     def row_sel(arr, sel, like):
         # arr[..., n, first[n]] as a one-hot sum over the queue axis
         sel = sel.reshape(sel.shape + (1,) * (arr.dim() - sel.dim()))
@@ -166,7 +190,7 @@ def pick_next_jobs(*, serving, serv_left, serv_model, serv_mask, serv_slot,
                             row_sel(mq_mask, sel_m, serv_mask), serv_mask)
     mq_model = torch.where(sel_m, torch.full_like(mq_model, -1), mq_model)
     serving = torch.where(take_m, 0, serving)
-    serv_left = torch.where(take_m, T_M, serv_left)
+    serv_left = torch.where(take_m, run_param(T_M, serving.dim()), serv_left)
 
     take_t, sel_t = take(tq_model, serving)
     serv_model = torch.where(take_t, row_sel(tq_model, sel_t, serv_model),
@@ -175,7 +199,7 @@ def pick_next_jobs(*, serving, serv_left, serv_model, serv_mask, serv_slot,
                             serv_slot)
     tq_model = torch.where(sel_t, torch.full_like(tq_model, -1), tq_model)
     serving = torch.where(take_t, 1, serving)
-    serv_left = torch.where(take_t, T_T, serv_left)
+    serv_left = torch.where(take_t, run_param(T_T, serving.dim()), serv_left)
     return dict(
         serving=serving, serv_left=serv_left, serv_model=serv_model,
         serv_mask=serv_mask, serv_slot=serv_slot, mq_model=mq_model,

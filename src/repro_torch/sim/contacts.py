@@ -27,7 +27,7 @@ from repro_torch.kernels.contacts import (apply_access, candidate_best_ref,
                                           pairwise_close_ref,
                                           pairwise_contacts)
 from repro_torch.numerics import fma32
-from repro_torch.sim.compute import to_int32_bits
+from repro_torch.sim.compute import run_param, to_int32_bits
 
 __all__ = [
     "take_nodes", "mutualize", "pair_still_close", "pairwise_close",
@@ -121,23 +121,23 @@ def advance_exchanges(*, partner, exch_elapsed, exch_total, still_close, dt):
     return elapsed, done, broke, ending, eff_time, pidx
 
 
-def _f32(v) -> float:
-    return float(np.float32(v))
-
-
 def compute_deliveries(*, order_seed, snap_has, snap, pidx, eff_time, ending,
                        t0, T_L):
     """Per (receiver, model) delivery flags of exchanges ending this slot,
     and the sender's packed snapshot words.
 
     Instance with send rank ``r`` is delivered iff ``t0 + (r + 1) T_L``
-    fits in the effective contact time. At M = 1 the lone instance has
-    rank 0 and no per-connection draw is made."""
+    fits in the effective contact time (``t0`` and ``T_L`` numbers or
+    float32 ``(B,)`` tensors). At M = 1 the lone instance has rank 0 and
+    no per-connection draw is made."""
     sender_has = take_nodes(snap_has, pidx)
     sender_words = take_nodes(snap, pidx)
     m_count = snap_has.shape[-1]
     if m_count == 1:
-        fin = _f32(np.float32(t0) + np.float32(T_L))
+        if torch.is_tensor(t0):
+            fin = run_param(t0 + T_L, eff_time.dim())
+        else:
+            fin = float(np.float32(t0) + np.float32(T_L))
         delivered = sender_has & (fin <= eff_time)[..., None]
         return delivered & ending[..., None], sender_words
     # per-connection send order: uniform(fold_in(PRNGKey(0), seed)), ranked
@@ -146,7 +146,8 @@ def compute_deliveries(*, order_seed, snap_has, snap, pidx, eff_time, ending,
     rnd = jr.uniform(keys, (m_count,))
     rnd = torch.where(sender_has, rnd, float("inf"))
     rank = rnd.argsort(dim=-1, stable=True).argsort(dim=-1, stable=True)
-    fin = fma32((rank + 1).float(), _f32(T_L), _f32(t0))
+    fin = fma32((rank + 1).float(), run_param(T_L, rank.dim()),
+                run_param(t0, rank.dim()))
     delivered = sender_has & (fin <= eff_time[..., None])
     return delivered & ending[..., None], sender_words
 
@@ -162,7 +163,8 @@ def form_connections(*, partner, match, has_model, inc, snap, snap_has,
     midx = match.clamp(0, n - 1)
     n_own = has_model.sum(-1)
     n_exch = n_own + take_nodes(n_own, midx)
-    total = fma32(n_exch.float(), _f32(T_L), _f32(t0))
+    total = fma32(n_exch.float(), run_param(T_L, n_exch.dim()),
+                  run_param(t0, n_exch.dim()))
     seed = (((int(slot_idx) * 2654435761) & 0xFFFFFFFF)
             + torch.arange(n, device=partner.device)) & 0xFFFFFFFF
     return dict(

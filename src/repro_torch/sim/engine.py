@@ -1,8 +1,11 @@
-"""The slot loop: one simulation run (port of ``repro.sim.engine``).
+"""The slot loop: single runs and batches of runs (port of
+``repro.sim.engine``).
 
 ``simulate(p, cfg, seed)`` runs ``repro``'s slot step in its exact order
 and with its exact PRNG split sequence, as a Python loop over slots on one
-device (``cuda`` unless the caller passes ``device="cpu"``):
+device (``cuda`` unless the caller passes ``device="cpu"``);
+``simulate_batch(ps, cfg, seeds)`` runs a (scenarios x seeds) grid through
+the same loop at once (``repro_torch.sim.sweep``):
 
 1. mobility step; 2. zone-membership words; 3. zone churn; 4. the contact
 sweep (partner proximity, exchanges, deliveries); 5. merge enqueue,
@@ -12,6 +15,16 @@ release and new connections; 6. observations and the train enqueue;
 An output sample is taken every ``cfg.sample_every`` slots. The loop makes
 no host synchronisation: samples stay on the device and are copied to the
 host once, at the end.
+
+The loop carries ``B = P·R`` runs on a leading axis, scenario-major: row
+``b`` is scenario ``b // R`` and seed ``b % R``, as ``BatchSimOutputs``'
+``(P, R, ...)`` axes. The dynamic parameters are float32 ``(B,)`` tensors.
+What depends only on the seed — the key chain, mobility, zone words, the
+observer ranks and the shared contact stage (the dense contact matrix on
+the CPU, the cell lists on either device) — runs once per seed on R rows
+and is broadcast to the B rows, as ``repro``'s ``vmap`` and
+``shared_barrier`` do. On a card the contact kernel runs once a slot for
+all B rows.
 
 With ``cfg.learn`` set, the Gossip-Learning layer
 (``repro_torch.sim.learn``) rides the same loop at ``repro``'s four sites:
@@ -33,7 +46,8 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any
+from functools import partial
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -49,8 +63,10 @@ from repro_torch.sim import learn as learning
 from repro_torch.sim.mobility import get_mobility, replay_model
 from repro_torch.sim.state import init_sim_state
 
-__all__ = ["SimConfig", "SimOutputs", "effective_zones", "zone_churn",
-           "dynamic_params", "simulate", "mobility_track", "check_overflow"]
+__all__ = ["SimConfig", "SimOutputs", "BatchSimOutputs", "effective_zones",
+           "zone_churn", "dynamic_params", "stack_dynamic_params",
+           "simulate", "simulate_batch", "mobility_track", "check_overflow",
+           "scan_carry_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +137,67 @@ class SimOutputs:
     merge_stats: np.ndarray | None = None      # (S, 6) cumulative counters
 
 
+#: The optional traces of ``SimOutputs``: the cells backend's overflow and
+#: the learning telemetry.
+_OPTIONAL = ("nbr_overflow", "test_acc", "test_acc_holders", "learn_obs",
+             "theta_var", "merge_stats")
+
+
+@dataclasses.dataclass
+class BatchSimOutputs:
+    """Batched traces with leading (scenario, seed) axes, as numpy arrays.
+
+    ``point(i, j)`` is the ``SimOutputs`` of scenario ``i``, seed ``j``.
+    The fields from ``plan`` on describe how ``repro_torch.sim.sweep.run``
+    executed the batch; they stay ``None``/empty for instances built
+    elsewhere."""
+
+    t: np.ndarray                # (S,)
+    availability: np.ndarray     # (P, R, S, M)
+    busy_frac: np.ndarray        # (P, R, S)
+    stored_info: np.ndarray      # (P, R, S)
+    obs_birth: np.ndarray        # (P, R, S, M, K)
+    obs_holders: np.ndarray      # (P, R, S, M, K)
+    model_holders: np.ndarray    # (P, R, S, M)
+    n_in_rz: np.ndarray          # (P, R, S)
+    availability_z: np.ndarray | None = None   # (P, R, S, M, K_zones)
+    stored_info_z: np.ndarray | None = None    # (P, R, S, K_zones)
+    n_in_rz_z: np.ndarray | None = None        # (P, R, S, K_zones)
+    nbr_overflow: np.ndarray | None = None     # (P, R, S) cells backend only
+    test_acc: np.ndarray | None = None         # (P, R, S)
+    test_acc_holders: np.ndarray | None = None # (P, R, S)
+    learn_obs: np.ndarray | None = None        # (P, R, S)
+    theta_var: np.ndarray | None = None        # (P, R, S)
+    merge_stats: np.ndarray | None = None      # (P, R, S, 6)
+    plan: Any = None             # SweepPlan of the producing sweep
+    devices_used: int | None = None
+    host_bytes: int | None = None
+    failed_chunks: tuple = ()    # sweep chunks that exhausted their retries
+    coverage: Any = None         # (n_scenarios,) bool: False = filled rows
+    quarantined: tuple = ()      # poison chunks (the dispatch queue's; empty)
+    telemetry: Any = None        # per-chunk attempt and latency records
+
+    @property
+    def n_scenarios(self) -> int:
+        return self.availability.shape[0]
+
+    @property
+    def n_seeds(self) -> int:
+        return self.availability.shape[1]
+
+    def point(self, scenario: int, seed: int) -> SimOutputs:
+        def _z(arr):
+            return None if arr is None else arr[scenario, seed]
+
+        return SimOutputs(
+            t=self.t,
+            **{f: _z(getattr(self, f)) for f in (
+                "availability", "busy_frac", "stored_info", "obs_birth",
+                "obs_holders", "model_holders", "n_in_rz", "availability_z",
+                "stored_info_z", "n_in_rz_z") + _OPTIONAL},
+        )
+
+
 def effective_zones(cfg: SimConfig) -> ZoneSet:
     """``cfg.zones``, or the single centered disc of radius ``rz_radius``."""
     if cfg.zones is not None:
@@ -148,12 +225,33 @@ def dynamic_params(p: FGParams) -> dict:
     return {k: float(np.float32(v)) for k, v in vals.items()}
 
 
-def _check_supported(p: FGParams, cfg: SimConfig) -> int:
-    """The model count ``M``; raises for what this slice does not run."""
-    if p.W < p.M:
-        raise NotImplementedError(
-            "simulator covers the W >= M (w = 1) regime used in the paper's "
-            "evaluation; pass M = min(M, W) for the general case")
+def stack_dynamic_params(ps: Sequence[FGParams], device=None) -> dict:
+    """The dynamic parameters of each scenario stacked into float32
+    ``(P,)`` tensors."""
+    dicts = [dynamic_params(p) for p in ps]
+    return {k: torch.tensor([d[k] for d in dicts], dtype=torch.float32,
+                            device=device)
+            for k in dicts[0]}
+
+
+def _check_params(ps: Sequence[FGParams]) -> int:
+    """The one model count ``M`` of a batch; raises for mixed ``M`` and
+    for ``W < M``."""
+    m_values = {int(p.M) for p in ps}
+    if len(m_values) != 1:
+        raise ValueError(
+            f"one batch runs one model count M; got {sorted(m_values)} — "
+            "split the sweep by M")
+    for p in ps:
+        if p.W < p.M:
+            raise NotImplementedError(
+                "simulator covers the W >= M (w = 1) regime used in the "
+                "paper's evaluation; pass M = min(M, W) for the general case")
+    return m_values.pop()
+
+
+def _check_config(cfg: SimConfig) -> None:
+    """Raises ``NotImplementedError`` for what this port does not run."""
     backend = cells.contact_backend(cfg)        # raises on an unknown name
     later = None
     if cfg.mobility not in ("rdm", "replay"):
@@ -176,7 +274,14 @@ def _check_supported(p: FGParams, cfg: SimConfig) -> int:
     if later is not None:
         on = " on the cell-list backend" if backend == "cells" else ""
         raise NotImplementedError(f"repro_torch does not run {later}{on} yet")
-    return int(p.M)
+
+
+def _check_supported(p: FGParams, cfg: SimConfig) -> int:
+    """The model count ``M`` of one run; raises for what the port does not
+    run."""
+    m = _check_params([p])
+    _check_config(cfg)
+    return m
 
 
 def _zone_member(pos, zs: ZoneSet):
@@ -197,7 +302,10 @@ def _mobility(cfg: SimConfig, positions, device):
         return get_mobility(cfg.mobility)
     if positions is None:
         raise ValueError("mobility='replay' needs positions")
-    track = torch.tensor(np.asarray(positions, np.float32), device=device)
+    if torch.is_tensor(positions):
+        track = positions.to(device=device, dtype=torch.float32)
+    else:
+        track = torch.tensor(np.asarray(positions, np.float32), device=device)
     if track.dim() == 3:
         track = track[:, None]
     if track.shape[0] < cfg.n_slots + 1 or track.shape[-2:] != (cfg.n_nodes, 2):
@@ -211,13 +319,23 @@ def _mobility(cfg: SimConfig, positions, device):
 STREAM_BLOCK = 64
 
 
-def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
-    """The slot loop from key ``key`` ``(B, 2)``: the per-sample outputs,
-    stacked on the device (leading axis = sample). ``task`` is the learning
-    task of ``cfg.learn`` (drawn from the config when None)."""
+def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
+         trace: str = "full") -> dict:
+    """The slot loop of ``B`` runs: the per-sample outputs, stacked on the
+    device (leading axes: sample, then the B rows).
+
+    ``key`` ``(R, 2)`` holds one key a seed and ``p_dyn`` maps each dynamic
+    parameter to a float32 ``(B,)`` tensor, ``B`` a multiple of ``R``, rows
+    scenario-major (row ``b`` runs seed ``b % R``); ``model``'s state has R
+    rows. ``task`` is the learning task of ``cfg.learn`` (drawn from the
+    config when None). ``trace="light"`` leaves out the per-observation
+    traces (``obs_birth``, ``obs_holders``), which only the o(τ) estimator
+    reads."""
     dt = cfg.dt
     t0, T_L, T_T, T_M = (p_dyn[k] for k in ("t0", "T_L", "T_T", "T_M"))
     tau_l = p_dyn["tau_l"]
+    b = tau_l.shape[0]
+    rows = partial(compute.broadcast_rows, b=b)
     r_tx2 = float(np.float32(cfg.r_tx ** 2))
     zs = effective_zones(cfg)
     use_cells = cells.contact_backend(cfg) == "cells"
@@ -235,15 +353,18 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
         return zone_words(_zone_member(pos, zs))
 
     mob, key = model.init(key, cfg)
-    state = init_sim_state(mob, zone_word(mob.pos), M=M, cfg=cfg, task=task)
+    state = init_sim_state(mob, rows(zone_word(mob.pos)), M=M, cfg=cfg,
+                           task=task)
     samples = []
     for slot in range(n_run):
         t_now = float(np.float32(slot) * np.float32(dt))
         key, k_mob1, k_mob2, k_obs, k_who = jr.split(key, 5).unbind(-2)
 
-        # ---- mobility, zone membership, zone churn ----
+        # ---- mobility and zone membership (once a seed), zone churn ----
         mob = model.step(k_mob1, k_mob2, state.mob, cfg)
-        zonew = zone_word(mob.pos)
+        zonew_seed = zone_word(mob.pos)
+        zonew = rows(zonew_seed)
+        pos = rows(mob.pos)
         in_rz = zonew != 0
         left, churned = zone_churn(
             state.zone_prev, zonew, inc=state.inc, has_model=state.has_model,
@@ -259,23 +380,26 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
                 left, state.theta, state.theta_cnt, state.theta_age,
                 task.theta0, peer_fill=state.peer_fill if trimmed_on else None)
 
-        # ---- contact sweep. Dense: shared matrix on the CPU, fused kernel
-        # later on a CUDA device (then the O(N) recompute gives the
-        # proximity bit). Cells: bounded neighbour lists from the cell grid,
-        # and the O(N) recompute for the proximity bit.
+        # ---- contact sweep. Dense: shared matrix on the CPU (once a
+        # seed), fused kernel later on a CUDA device, over all B rows (then
+        # the O(N) recompute gives the proximity bit). Cells: bounded
+        # neighbour lists from the cell grid (once a seed), and the O(N)
+        # recompute for the proximity bit.
         if use_cells:
-            nbr, ovf = cells.neighbor_lists(mob.pos, zonew, grid, r_tx2)
+            nbr, ovf = (rows(t) for t in cells.neighbor_lists(
+                mob.pos, zonew_seed, grid, r_tx2))
             still_close = contacts.pair_still_close(
-                mob.pos, zonew, state.partner, r_tx2)
+                pos, zonew, state.partner, r_tx2)
         else:
-            closew_shared, ctx = contacts.pairwise_close(mob.pos, zonew,
+            closew_shared, ctx = contacts.pairwise_close(mob.pos, zonew_seed,
                                                          r_tx2)
+            ctx = tuple(rows(c) if torch.is_tensor(c) else c for c in ctx)
             if closew_shared is None:
                 still_close = contacts.pair_still_close(
-                    mob.pos, zonew, state.partner, r_tx2)
+                    pos, zonew, state.partner, r_tx2)
             else:
                 still_close = contacts.partner_close_bit(
-                    closew_shared, state.partner)
+                    rows(closew_shared), state.partner)
         elapsed, _, _, ending, eff_time, pidx = contacts.advance_exchanges(
             partner=state.partner, exch_elapsed=state.exch_elapsed,
             exch_total=state.exch_total, still_close=still_close, dt=dt,
@@ -303,7 +427,7 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
         partner = torch.where(ending, -1, state.partner)
         elig = (partner < 0) & in_rz
         if use_cells:
-            best, has = cells.candidate_best(mob.pos, nbr, state.prev_close,
+            best, has = cells.candidate_best(pos, nbr, state.prev_close,
                                              elig)
             match = contacts.mutualize(best, has)
             closew = nbr                # the cells path's prev_close carry
@@ -382,6 +506,7 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None) -> dict:
                 obs_birth=state.obs_birth, in_rz=state.zone_prev != 0,
                 member=compute.unpack_mask(state.zone_prev[..., None], zs.k),
                 partner=state.partner, t_now=t_now, tau_l=tau_l,
+                with_obs_trace=trace == "full",
             )
             if use_cells:
                 out["nbr_overflow"] = state.nbr_overflow
@@ -410,6 +535,13 @@ def mobility_track(cfg: SimConfig, seed: int = 0, device=None) -> np.ndarray:
     return torch.stack(frames)[:, 0].cpu().numpy()
 
 
+def _sample_times(cfg: SimConfig) -> np.ndarray:
+    """The engine samples once every ``sample_every`` slots, at slot
+    indices ``s-1, 2s-1, ...``."""
+    s = cfg.sample_every
+    return (np.arange(cfg.n_slots) * cfg.dt)[s - 1::s]
+
+
 def simulate(p: FGParams, cfg: SimConfig, seed: int = 0, device=None,
              positions=None, task=None) -> SimOutputs:
     """Run the simulator for the FG system ``p``.
@@ -426,13 +558,12 @@ def simulate(p: FGParams, cfg: SimConfig, seed: int = 0, device=None,
         task = dataclasses.replace(
             task, **{f.name: getattr(task, f.name).to(device)
                      for f in dataclasses.fields(task)})
-    outs = _run(key, dynamic_params(p), cfg, M, model, task)
+    outs = _run(key, stack_dynamic_params([p], device), cfg, M, model, task)
     host = {k: v[:, 0].cpu().numpy() for k, v in outs.items()}
     if "nbr_overflow" in host:
         check_overflow(cfg, host["nbr_overflow"], context="simulate")
-    s = cfg.sample_every
     return SimOutputs(
-        t=(np.arange(cfg.n_slots) * cfg.dt)[s - 1::s],
+        t=_sample_times(cfg),
         availability=host["availability"],
         busy_frac=host["busy_frac"],
         stored_info=host["stored"],
@@ -443,9 +574,43 @@ def simulate(p: FGParams, cfg: SimConfig, seed: int = 0, device=None,
         availability_z=host["availability_z"],
         stored_info_z=host["stored_z"],
         n_in_rz_z=host["n_in_rz_z"],
-        **{k: host.get(k) for k in ("nbr_overflow", "test_acc", "test_acc_holders",
-                                    "learn_obs", "theta_var", "merge_stats")},
+        **{k: host.get(k) for k in _OPTIONAL},
     )
+
+
+def simulate_batch(ps: Sequence[FGParams] | FGParams, cfg: SimConfig,
+                   seeds: Sequence[int] = (0,),
+                   device=None) -> BatchSimOutputs:
+    """One (scenarios x seeds) Monte-Carlo sweep: traces shaped
+    ``(len(ps), len(seeds), n_samples, ...)``, every row equal to its
+    ``simulate`` run. A thin wrapper over
+    ``repro_torch.sim.sweep.run(..., reduce="trace")``, which also streams
+    large grids in chunks and reduces them on the device."""
+    from repro_torch.sim import sweep
+
+    return sweep.run(ps, cfg, seeds, reduce="trace", device=device)
+
+
+def scan_carry_bytes(cfg: SimConfig, M: int) -> int:
+    """Bytes of one run's carry: its ``SimState`` plus its PRNG key,
+    shapes only (built on the ``meta`` device, nothing is allocated).
+
+    Every ``SimState`` field has ``repro``'s shape and width (packed words
+    are int32 here, uint32 there), so the carry is ``repro``'s
+    ``scan_carry_bytes`` plus 8: the key is two int64 words here (torch has
+    no uint32 arithmetic on the CPU, ``repro_torch.random``) against two
+    uint32 words in ``repro``."""
+    key = jr.PRNGKey(0, device="meta")[None]
+    mob, key = get_mobility("rdm" if cfg.mobility == "replay"
+                            else cfg.mobility).init(key, cfg)
+    zone0 = torch.zeros((1, cfg.n_nodes), dtype=torch.int32, device="meta")
+    task = (learning.make_task(cfg.learn, "meta")
+            if cfg.learn is not None else None)
+    state = init_sim_state(mob, zone0, M=M, cfg=cfg, task=task)
+    leaves = [key] + [getattr(mob, f.name) for f in dataclasses.fields(mob)]
+    leaves += [getattr(state, f.name) for f in dataclasses.fields(state)
+               if f.name != "mob" and getattr(state, f.name) is not None]
+    return sum(t.numel() * t.element_size() for t in leaves)
 
 
 def check_overflow(cfg: SimConfig, max_ovf, *, context: str = "run") -> int:

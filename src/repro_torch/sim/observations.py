@@ -13,8 +13,9 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.sim.compute import (pack_mask, packed_onehot,
-                                     packed_popcount, unpack_mask)
+from repro_torch.sim.compute import (broadcast_rows, pack_mask,
+                                     packed_onehot, packed_popcount,
+                                     run_param, unpack_mask)
 
 __all__ = ["generate_observations", "apply_completions", "slot_outputs",
            "o_tau_histograms", "estimate_o_of_tau", "RANK_DENSE_MAX_N"]
@@ -38,14 +39,23 @@ def generate_observations(*, k_obs, k_who, obs_birth, obs_head, inc, in_rz,
                           lam, Lam, dt, t_now):
     """Draw per-model observation arrivals and pick their Λ observers.
 
-    ``k_obs``/``k_who`` are ``(B, 2)`` keys. Returns ``(obs_birth,
-    obs_head, inc, want_train (B, N, M), slot_payload (B, N, M))``."""
+    ``k_obs``/``k_who`` are ``(R, 2)`` keys, one a seed, for ``B`` runs
+    laid out scenario-major (row ``b`` runs seed ``b % R``; ``R == B`` when
+    every run has its own key). The draws and the observer ranks depend
+    only on the seed, so they are made on the R seed rows (``in_rz``'s
+    first R rows) and broadcast; ``lam`` and ``Lam`` are numbers or float32
+    ``(B,)`` tensors. Returns ``(obs_birth, obs_head, inc, want_train
+    (B, N, M), slot_payload (B, N, M))``."""
     m_count, k_count = obs_birth.shape[-2:]
-    n = in_rz.shape[-1]
+    b, n = in_rz.shape
+    r = k_obs.shape[0]
     dev = obs_birth.device
 
-    new_obs = jr.uniform(k_obs, (m_count,)) < float(
-        np.float32(lam) * np.float32(dt))
+    if torch.is_tensor(lam):
+        rate = run_param(lam * float(np.float32(dt)), 2)
+    else:
+        rate = float(np.float32(lam) * np.float32(dt))
+    new_obs = broadcast_rows(jr.uniform(k_obs, (m_count,)), b) < rate
     slot_of = obs_head
     ring = torch.arange(k_count, device=dev)
     obs_birth = torch.where(
@@ -58,9 +68,12 @@ def generate_observations(*, k_obs, k_who, obs_birth, obs_head, inc, in_rz,
 
     # Λ random in-RZ nodes record each new observation: score nodes
     # i.i.d. (out-of-RZ nodes pushed back by 1e3) and take rank < Λ
-    who = jr.uniform(k_who, (m_count, n)) + (~in_rz)[..., None, :] * 1e3
-    rank = _observer_ranks(who)
-    lam_n = int(np.clip(np.round(np.float32(Lam)), 1, n))
+    who = jr.uniform(k_who, (m_count, n)) + (~in_rz[:r])[..., None, :] * 1e3
+    rank = broadcast_rows(_observer_ranks(who), b)
+    if torch.is_tensor(Lam):
+        lam_n = run_param(torch.round(Lam).clamp(1, n).to(torch.int64), 3)
+    else:
+        lam_n = int(np.clip(np.round(np.float32(Lam)), 1, n))
     is_obs = (rank < lam_n) & in_rz[..., None, :] & new_obs[..., None]
     want_train = is_obs.transpose(-1, -2)
     slot_payload = slot_of[..., None, :].expand(*slot_of.shape[:-1], n,
@@ -96,10 +109,11 @@ def slot_outputs(*, inc, has_model, obs_birth, in_rz, partner, t_now, tau_l,
     """Per-sample observables of one slot (the quantities of Figs. 1-4).
 
     ``in_rz`` is the union zone membership ``(B, N)``; ``member`` the
-    ``(B, N, K)`` per-zone membership, which adds the per-zone traces."""
+    ``(B, N, K)`` per-zone membership, which adds the per-zone traces;
+    ``tau_l`` a number or a float32 ``(B,)`` tensor."""
     k_count = obs_birth.shape[-1]
     age = float(np.float32(t_now)) - obs_birth
-    live = (obs_birth > float("-inf")) & (age <= float(np.float32(tau_l)))
+    live = (obs_birth > float("-inf")) & (age <= run_param(tau_l, age.dim()))
     livew = pack_mask(live)                                       # (B, M, KW)
     stored = packed_popcount(inc & livew[..., None, :, :]).sum(-1)  # (B, N)
     n_in = in_rz.sum(-1)

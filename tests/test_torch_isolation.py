@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.kernels.ssd_scan", "repro_torch.core.mobility",
                  "repro_torch.core.meanfield", "repro_torch.core.dde",
                  "repro_torch.core.capacity", "repro_torch.core.staleness",
-                 "repro_torch.configs.fg_paper"):
+                 "repro_torch.configs.fg_paper", "repro_torch.sim.sweep",
+                 "repro_torch.sim.dispatch", "repro_torch.checkpoint.ckpt"):
         assert name in modules, name
     code = "\n".join([
         "import importlib, sys",
