@@ -1,8 +1,12 @@
 """PyTorch and CUDA port of the Floating Gossip simulator (``repro``).
 
 The port runs on an NVIDIA Hopper GPU: plain tensor code is PyTorch, and
-the TPU Pallas kernel of the simulator's main path is a hand-written CUDA
-kernel (``repro_torch.kernels.contacts``). Entry points run on ``cuda``
+every TPU Pallas kernel is a hand-written CUDA kernel
+(``repro_torch.kernels``). It holds the simulator (``sim``: the slot loop
+on both contact backends, the protocol fault layer, Gossip Learning and
+sweeps), its analytics (``core``: the Lemma 1-3 fixed point and its
+fault-class twin, the Theorem-1 DDE, capacity, staleness), the gossip
+round and the serving path. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead. The package imports neither JAX nor
 ``repro``; its tests hold it against ``repro`` on the same inputs.

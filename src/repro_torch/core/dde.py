@@ -27,6 +27,11 @@ the pre-``d_I`` zero region and the Eq. (6) plateau are step-index gates.
 Each point's arithmetic is the scalar solver's, operation for operation,
 so each row equals the scalar solve on the same grid bit for bit.
 
+:func:`solve_observation_availability_classes` is the fault layer's
+twin: one lane per fault class, with the class fixed point's corrected
+coefficients, integrated by the same batched scan (at a disabled fault
+configuration it delegates to the scalar solve).
+
 Arithmetic: float32 on the device of the mean-field solution's tensors.
 The reference's jitted scan contracts products into fused multiply-adds,
 so the two agree to float32 rounding, not bit for bit.
@@ -45,7 +50,8 @@ from repro_torch.core.meanfield import FGParams, MeanFieldSolution
 from repro_torch.numerics import row_sum32
 
 __all__ = ["DDESolution", "solve_observation_availability",
-           "solve_observation_availability_batch"]
+           "solve_observation_availability_batch",
+           "solve_observation_availability_classes"]
 
 
 def _check_finite_coeffs(**named) -> None:
@@ -83,8 +89,9 @@ def _strict_trace(converged, *, what: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class DDESolution:
     tau: torch.Tensor       # (nt,) age grid [s], starting at 0
-    o: torch.Tensor         # (nt,), or (P, nt) batched
+    o: torch.Tensor         # (nt,), or (P, nt) batched, or (C, K, nt)
     dt: float
+    weights: Any = None     # (C,) class weights of a class-structured solve
     converged: Any = None   # every sample finite
     residual: Any = None    # max |do/dtau| at the final step [1/s]
 
@@ -104,6 +111,16 @@ class DDESolution:
     def point(self, i: int) -> "DDESolution":
         """Scalar slice of a batched solution."""
         return DDESolution(tau=self.tau, o=self.o[i], dt=self.dt)
+
+    def weighted(self) -> "DDESolution":
+        """The class axis of a class-structured solve collapsed with the
+        accessible-observer weights ``f_c q_c / q_bar``: the Theorem-1
+        availability a uniformly random accessible observer sees."""
+        if self.weights is None:
+            return self
+        w = self.weights.reshape(-1, *([1] * (self.o.dim() - 1)))
+        return DDESolution(tau=self.tau, o=(w * self.o).sum(0), dt=self.dt,
+                           converged=self.converged, residual=self.residual)
 
 
 def _euler_step(o, o_delayed, coeff, a, leak, dt: float):
@@ -274,3 +291,83 @@ def solve_observation_availability_batch(ps: list[FGParams],
         _strict_trace(converged, what="solve_observation_availability_batch")
     return DDESolution(tau=tau, o=o, dt=dt, converged=converged,
                        residual=residual)
+
+
+def solve_observation_availability_classes(p: FGParams, csol, faults=None,
+                                           *, dt: float = 0.05,
+                                           tau_max: float | None = None,
+                                           strict: bool = False
+                                           ) -> DDESolution:
+    """Class-weighted Theorem-1 observation availability, on the device of
+    ``csol`` (a ``core.meanfield.ClassSolution``; ``faults`` defaults to
+    ``p.faults``). Each (class ``c``, zone ``z``) lane integrates Eq. (5)
+    with the class fixed point's coefficients: gain ``q_c b S w^2 / T_S``
+    (a holder merges only while on), partner availability ``a_serve``,
+    leak ``(alpha / N + crash_rate) w``, and the Eq. (6) plateau ``Lam /
+    ceil(a_serve N q_bar)``, over the zone's delays.
+
+    ``o`` is ``(C, K, nt)``; :meth:`DDESolution.weighted` collapses the
+    class axis. At a disabled configuration (``csol.base`` set) it
+    delegates to :func:`solve_observation_availability`, bit for bit, with
+    weight 1; a multi-zone ``csol.base`` raises ``NotImplementedError``."""
+    fc = faults if faults is not None else getattr(p, "faults", None)
+    base = csol.base
+    if base is not None:
+        if hasattr(base, "R"):
+            raise NotImplementedError(
+                "repro_torch's solve_observation_availability_classes solves "
+                "a single Replication Zone; ZoneSets come with the "
+                "multi-zone slice (ROADMAP queue 1, item 5)")
+        sol = solve_observation_availability(p, base, dt=dt, tau_max=tau_max,
+                                             strict=strict)
+        return DDESolution(
+            tau=sol.tau, o=sol.o[None, None, :], dt=dt,
+            weights=torch.ones((1,), dtype=torch.float32,
+                               device=sol.o.device),
+            converged=sol.converged, residual=sol.residual)
+
+    device = csol.a.device
+    crash = float(fc.crash_rate) if fc is not None and fc.enabled else 0.0
+    C, K = csol.a.shape
+    n_total, tau = _grid(float(tau_max if tau_max is not None else p.tau_l),
+                         dt, device)
+
+    # the zone's delays, one lane a class
+    def lanes(x):
+        return np.broadcast_to(x.double().cpu().numpy(), (C, K)).ravel()
+
+    d_I, d_M = lanes(csol.d_I), lanes(csol.d_M)
+    finite = np.isfinite(d_I) & np.isfinite(d_M)
+    d_I0 = np.where(finite, d_I, 0.0)
+    d_M0 = np.where(finite, d_M, 0.0)
+    n_pre = np.minimum(np.round(d_I0 / dt).astype(np.int64), n_total)
+    n_plateau = np.minimum(np.round(d_M0 / dt).astype(np.int64) + 1,
+                           n_total - n_pre)
+    n_delay = np.maximum(np.round(d_M0 / dt).astype(np.int64), 1)
+    n_pre = np.where(finite, n_pre, n_total)
+    n_plateau = np.where(finite, n_plateau, 0)
+    start = n_pre + n_plateau
+    n_delay = np.where(start < n_total, n_delay, 1)
+    buf_len = int(n_delay.max())
+
+    q, a_serve, N_z = csol.q, csol.a_serve, csol.N_z
+    coeff_z = csol.b * csol.S * p.w * p.w / torch.clamp_min(csol.T_S, 1e-12)
+    coeff = (q[:, None] * coeff_z[None, :]).reshape(-1)
+    a_lane = a_serve[None, :].expand(C, K).reshape(-1)
+    leak = ((csol.alpha_z / N_z + crash) * p.w)[None, :].expand(C, K)
+    o0_z = csol.Lam_z / torch.ceil(
+        torch.clamp_min(a_serve * N_z * csol.q_bar, 1.0))
+    o0 = o0_z[None, :].expand(C, K).reshape(-1)
+    o0 = torch.where(torch.from_numpy(finite).to(device), o0, 0.0)
+    leak = leak.reshape(-1)
+    _check_finite_coeffs(coeff=coeff, a=a_lane, leak=leak, o0=o0)
+
+    o = _integrate_batch(coeff, a_lane, leak, o0, start, n_pre, n_delay,
+                         n_total, buf_len, dt).reshape(C, K, n_total)
+    converged, residual = _trace_diag(o, dt)
+    if strict:
+        _strict_trace(converged,
+                      what="solve_observation_availability_classes")
+    weights = csol.fracs * q / torch.clamp_min(csol.q_bar, 1e-12)
+    return DDESolution(tau=tau, o=o, dt=dt, weights=weights,
+                       converged=converged, residual=residual)

@@ -24,8 +24,12 @@ the scalar solutions bit for bit, on either device. The reference's
 jitted program contracts some products into fused multiply-adds and sums
 in its own order, so the two agree to float32 rounding, not bit for bit.
 
-The multi-zone, fault-class and contamination solvers of the reference
-come with the slices that need them (ROADMAP queue 1, items 3-5).
+The fault layer's analytic twin, :func:`solve_fixed_point_classes`,
+solves the class-structured fixed point of a single Replication Zone (one
+lane per fault class; at a disabled fault configuration it delegates to
+:func:`solve_fixed_point`). The multi-zone and contamination solvers of
+the reference come with the slices that need them (ROADMAP queue 1, items
+4 and 5).
 """
 
 from __future__ import annotations
@@ -40,9 +44,10 @@ from repro_torch.core.mobility import ContactModel
 from repro_torch.core.zones import ZoneSet
 from repro_torch.numerics import row_sum32, sqrt32
 
-__all__ = ["FGParams", "MeanFieldSolution", "transfer_stats",
+__all__ = ["FGParams", "MeanFieldSolution", "ClassSolution", "transfer_stats",
            "solve_fixed_point", "solve_fixed_point_batch",
-           "merge_arrival_rate", "queueing_delays", "stability_lhs"]
+           "solve_fixed_point_classes", "merge_arrival_rate",
+           "queueing_delays", "stability_lhs"]
 
 _EPS = 1e-12
 #: The parameter fields the solvers read, as float32 tensors.
@@ -360,3 +365,149 @@ def stability_lhs(r: torch.Tensor, d_M, d_I, p: FGParams
     return _stability(r, M=pd["M"], w=pd["w"], lam=pd["lam"], Lam=pd["Lam"],
                       N=pd["N"], alpha=pd["alpha"], T_T=pd["T_T"],
                       T_M=pd["T_M"])
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassSolution:
+    """Class-structured (class × zone) mean-field operating point, the
+    fault layer's analytic twin: ``a[c, z]`` is the steady-state model
+    availability among class-``c`` members of zone ``z`` (the simulator's
+    ``availability_c``); ``a_serve`` the duty-weighted availability of
+    accessible, serving nodes. The port solves one zone (``K = 1``)."""
+
+    a: torch.Tensor          # (C, K) per-class per-zone availability
+    a_serve: torch.Tensor    # (K,) duty-weighted serving availability
+    q: torch.Tensor          # (C,) stationary accessible (duty) fraction
+    q_bar: torch.Tensor      # () population mean accessible fraction
+    fracs: torch.Tensor      # (C,) class population fractions
+    b: torch.Tensor          # (K,) busy probability
+    S: torch.Tensor          # (K,) corrected transfer success probability
+    T_S: torch.Tensor        # (K,) corrected mean exchange time [s]
+    N_z: torch.Tensor        # (K,) mean nodes per zone
+    alpha_z: torch.Tensor    # (K,) zone exit rate [nodes/s]
+    Lam_z: torch.Tensor      # (K,) mean simultaneous observers per zone
+    r: Any = None            # (K,) effective merge arrival rate [1/s]
+    d_M: Any = None          # (K,) mean merge delay [s]
+    d_I: Any = None          # (K,) mean incorporation delay [s]
+    converged: Any = None
+    residual: Any = None
+    base: Any = None         # the delegated MeanFieldSolution at a
+                             # disabled fault configuration
+
+    @property
+    def a_mean(self) -> torch.Tensor:
+        """(K,) population-weighted availability ``sum_c f_c a[c, z]``."""
+        return (self.fracs[:, None] * self.a).sum(0)
+
+
+def _class_vectors(fc):
+    """``(fracs, duty, serves)`` float64 vectors of a FaultConfig."""
+    fracs = np.asarray([c.frac for c in fc.classes], np.float64)
+    q = np.asarray([c.duty for c in fc.classes], np.float64)
+    serves = np.asarray([0.0 if c.free_rider else 1.0 for c in fc.classes],
+                        np.float64)
+    return fracs, q, serves
+
+
+def solve_fixed_point_classes(p: FGParams, contact: ContactModel,
+                              faults=None, zones: ZoneSet | None = None, *,
+                              iters: int = 200, tol: float = 1e-4,
+                              strict: bool = False) -> ClassSolution:
+    """Class-structured coupled Lemma 1-3 fixed point of one Replication
+    Zone, on the contact model's device (``faults`` defaults to
+    ``p.faults``). Per class ``c``
+
+        G_c * a_serve * (1 - a_c) + lt_c * (1 - a_c) - alpha_c * a_c = 0
+
+    with ``q_c`` the class's duty and ``q_bar = sum_c f_c q_c`` (the
+    gossiping population is ``N q_bar``); ``a_serve = sum_c f_c q_c (1 -
+    fr_c) a_c / q_bar`` (a partner serves only if on and not a
+    free-rider); ``G_c = q_c b (N q_bar) S w / T_S``, with ``S`` and
+    ``T_S`` corrected for link failure (``_transfer_stats_core``'s
+    ``fail_rate``) and the contact rate derated by the abort probability;
+    ``lt_c = lam Lam q_c / q_bar`` (observers are accessible members);
+    ``alpha_c = alpha + crash_rate N`` (a crash loses state like an exit).
+
+    At a disabled (or absent) fault configuration it delegates to
+    :func:`solve_fixed_point`, bit for bit, the solution riding along as
+    ``.base``. A ``ZoneSet`` (``zones`` or ``p.zones``) raises
+    ``NotImplementedError``: the multi-zone slice ports it."""
+    fc = faults if faults is not None else getattr(p, "faults", None)
+    if zones is not None or p.zones is not None:
+        raise NotImplementedError(
+            "repro_torch's solve_fixed_point_classes solves a single "
+            "Replication Zone; ZoneSets come with the multi-zone slice "
+            "(ROADMAP queue 1, item 5)")
+    dev = contact.device
+    pd = _param_tensors([p], dev, batched=False)
+    ones = torch.ones((1,), dtype=torch.float32, device=dev)
+    if fc is None or not fc.enabled:
+        base = solve_fixed_point(p, contact, iters=iters, tol=tol,
+                                 strict=strict)
+        return ClassSolution(
+            a=base.a.reshape(1, 1), a_serve=base.a.reshape(1), q=ones,
+            q_bar=torch.ones((), dtype=torch.float32, device=dev),
+            fracs=ones, b=base.b.reshape(1), S=base.S.reshape(1),
+            T_S=base.T_S.reshape(1), N_z=pd["N"].reshape(1),
+            alpha_z=pd["alpha"].reshape(1), Lam_z=pd["Lam"].reshape(1),
+            r=base.r.reshape(1), d_M=base.d_M.reshape(1),
+            d_I=base.d_I.reshape(1), converged=base.converged,
+            residual=base.residual, base=base)
+
+    _check_finite_inputs(p, contact)
+    fracs, q, serves = _class_vectors(fc)
+    q_bar = max(float(np.sum(fracs * q)), _EPS)
+    fail_rate = fc.link_fail_rate if fc.link_fail_rate > 0.0 else None
+    g_eff = contact.g * (1.0 - fc.p_abort)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    f_t, q_t, sv_t = f32(fracs), f32(q), f32(serves)
+    N_z, alpha_z, Lam_z = (pd[k].reshape(1) for k in ("N", "alpha", "Lam"))
+    w, lam = pd["w"], pd["lam"]
+    N_eff = N_z * q_bar
+    alpha_c = alpha_z[None, :] + fc.crash_rate * N_z[None, :]
+    serve_w = (f_t * q_t * sv_t)[:, None]
+
+    def stats(a_serve):
+        S, T_S = _transfer_stats_core(
+            a_serve, M=pd["M"], w=w, t0=pd["t0"], T_L=pd["T_L"],
+            t_grid=contact.t_grid, pdf=contact.pdf, weights=contact.weights,
+            fail_rate=fail_rate)
+        return torch.clamp_min(S, _EPS), torch.clamp_min(T_S, _EPS)
+
+    def serve_avail(a):
+        return (serve_w * a).sum(0) / q_bar
+
+    def busy(T_S):
+        return torch.clamp_min(
+            _busy_core(T_S, g=g_eff, alpha=alpha_z, N=N_eff), _EPS)
+
+    def body(a):
+        a_serve = torch.clamp_min(serve_avail(a), _EPS)          # (K,)
+        S, T_S = stats(a_serve)
+        G = q_t[:, None] * (busy(T_S) * N_eff * S * w / T_S)[None, :]
+        lt = lam * Lam_z[None, :] * q_t[:, None] / q_bar
+        gain = G * a_serve[None, :] + lt
+        a_new = gain / (gain + alpha_c)
+        return 0.5 * a + 0.5 * torch.clamp(a_new, _EPS, 1.0)
+
+    a = torch.full((len(fracs), 1), 0.5, dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        a = body(a)
+    residual = torch.abs(body(a) - a).max()
+    converged = residual <= tol
+    if strict:
+        _strict_check(converged, residual, what="solve_fixed_point_classes",
+                      iters=iters, tol=tol)
+    a_serve = torch.clamp_min(serve_avail(a), _EPS)
+    S, T_S = stats(a_serve)
+    b = busy(T_S)
+    r = _merge_rate(a_serve, b, S, M=pd["M"], w=w, g=g_eff)
+    d_M, d_I = _delays(r, M=pd["M"], w=w, lam=lam, Lam=Lam_z, N=N_eff,
+                       T_T=pd["T_T"], T_M=pd["T_M"])
+    return ClassSolution(
+        a=a, a_serve=a_serve, q=q_t, q_bar=f32(q_bar), fracs=f_t, b=b, S=S,
+        T_S=T_S, N_z=N_z, alpha_z=alpha_z, Lam_z=Lam_z, r=r, d_M=d_M,
+        d_I=d_I, converged=converged, residual=residual)

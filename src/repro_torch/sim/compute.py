@@ -160,17 +160,22 @@ def enqueue_ascending(queue: torch.Tensor, want: torch.Tensor, *payloads):
 
 
 def advance_timers(serving, serv_left, dt):
-    """Tick running jobs: ``(serv_left, finished_merge, finished_train)``."""
+    """Tick running jobs: ``(serv_left, finished_merge, finished_train)``.
+    ``dt`` is a number, or a ``(B, N)`` float32 tensor of each node's tick
+    (the fault layer freezes an off node's timer with a tick of 0)."""
     serv_left = torch.where(serving >= 0, serv_left - dt, serv_left)
     fin = (serving >= 0) & (serv_left <= 0.0)
     return serv_left, fin & (serving == 0), fin & (serving == 1)
 
 
 def pick_next_jobs(*, serving, serv_left, serv_model, serv_mask, serv_slot,
-                   mq_model, mq_mask, tq_model, tq_slot, T_M, T_T):
+                   mq_model, mq_mask, tq_model, tq_slot, T_M, T_T,
+                   can_serve=None):
     """Assign idle servers their next job: merge queue first (non-preemptive
     priority), then training. ``T_M`` and ``T_T`` are numbers or float32
-    ``(B,)`` tensors. Returns the updated fields as a dict."""
+    ``(B,)`` tensors. ``can_serve`` (``(B, N)`` bool, the fault layer's
+    accessibility) gates *starting* a job; queued work waits. Returns the
+    updated fields as a dict."""
     def row_sel(arr, sel, like):
         # arr[..., n, first[n]] as a one-hot sum over the queue axis
         sel = sel.reshape(sel.shape + (1,) * (arr.dim() - sel.dim()))
@@ -180,6 +185,8 @@ def pick_next_jobs(*, serving, serv_left, serv_model, serv_mask, serv_slot,
     def take(model_q, serving):
         first = _first_true(model_q >= 0)
         ok = (serving < 0) & (model_q >= 0).any(-1)
+        if can_serve is not None:
+            ok = ok & can_serve
         slots = torch.arange(model_q.shape[-1], device=model_q.device)
         return ok, (slots == first[..., None]) & ok[..., None]
 

@@ -28,14 +28,28 @@ all B rows.
 
 With ``cfg.learn`` set, the Gossip-Learning layer
 (``repro_torch.sim.learn``) rides the same loop at ``repro``'s four sites:
-replicas reset on zone churn, deliveries merge after the contact sweep,
-parameters are snapshotted when connections form, and finished training
-jobs take an SGD step. It never feeds back into the protocol.
+replicas reset on zone churn (and crashes), deliveries merge after the
+contact sweep, parameters are snapshotted when connections form, and
+finished training jobs take an SGD step. It never feeds back into the
+protocol.
+
+With an enabled ``cfg.faults`` (a ``repro_torch.sim.faults.FaultConfig``)
+the fault layer rides the loop at ``repro``'s sites: a second key split
+after the base one feeds the duty chain (this slot's accessibility
+``on``), the crash coin, the link coin and the abort coin, all drawn once
+a seed; crashed nodes drop their state like zone churn; ``on`` is folded
+into the zone words of both contact backends (off nodes get a zero word
+before the kernel runs); failed links break exchanges; free-riders'
+deliveries are dropped; eligibility, observers and new jobs need ``on``,
+and an off node's compute timer freezes; new matches abort on their
+pair's coin. The per-class telemetry (``availability_c``, ``on_frac_c``,
+``n_in_rz_c``) and the cumulative ``fault_events`` come back with every
+sample. A disabled configuration runs exactly the fault-free program.
 
 The port runs the paper's validation loop: ``rdm`` (or ``replay``)
-mobility at constant speed, a single static zone, no faults, any ``M``,
-with or without learning (average or trimmed defenses), on either contact
-backend: the dense O(N²) sweep, or the cell lists of
+mobility at constant speed, a single static zone, any ``M``, with or
+without the protocol faults and learning (average or trimmed defenses),
+on either contact backend: the dense O(N²) sweep, or the cell lists of
 ``repro_torch.sim.cells`` (``contact_backend="cells"``, or ``"auto"`` from
 ``cells.AUTO_CELLS_MIN_N`` nodes up), whose running overflow count comes
 back as ``nbr_overflow``. Any other configuration raises
@@ -96,7 +110,9 @@ class SimConfig:
     nbr_cap: int | None = None           # cells: neighbour-list cap per node
                                          # (None = density-derived auto)
     speed_range: tuple | None = None     # per-node U(lo, hi) speeds (rdm)
-    faults: Any = None
+    faults: Any = None                   # repro_torch.sim.faults.FaultConfig;
+                                         # None or a disabled config runs
+                                         # exactly the fault-free program
     learn: Any = None
     overflow_mode: str = "warn"          # cells: nbr_overflow > 0 warns
                                          # ("warn") or raises ("strict")
@@ -129,6 +145,13 @@ class SimOutputs:
     # cells backend only: running max of close pairs dropped per slot by
     # the bounded cell buffers and lists (0 = contact detection exact)
     nbr_overflow: np.ndarray | None = None     # (S,)
+    # fault telemetry (enabled FaultConfig only; C = n_classes)
+    availability_c: np.ndarray | None = None   # (S, M, C) per-class in-RZ
+                                               # model availability
+    on_frac_c: np.ndarray | None = None        # (S, C) accessible fraction
+    n_in_rz_c: np.ndarray | None = None        # (S, C)
+    fault_events: np.ndarray | None = None     # (S, 3) cumulative
+                                               # abort/link-fail/crash
     # learning telemetry (enabled LearnConfig only; repro_torch.sim.learn)
     test_acc: np.ndarray | None = None         # (S,) population mean accuracy
     test_acc_holders: np.ndarray | None = None # (S,) mean over in-RZ holders
@@ -137,9 +160,10 @@ class SimOutputs:
     merge_stats: np.ndarray | None = None      # (S, 6) cumulative counters
 
 
-#: The optional traces of ``SimOutputs``: the cells backend's overflow and
-#: the learning telemetry.
-_OPTIONAL = ("nbr_overflow", "test_acc", "test_acc_holders", "learn_obs",
+#: The optional traces of ``SimOutputs``: the cells backend's overflow,
+#: the fault and the learning telemetry.
+_OPTIONAL = ("nbr_overflow", "availability_c", "on_frac_c", "n_in_rz_c",
+             "fault_events", "test_acc", "test_acc_holders", "learn_obs",
              "theta_var", "merge_stats")
 
 
@@ -164,6 +188,10 @@ class BatchSimOutputs:
     stored_info_z: np.ndarray | None = None    # (P, R, S, K_zones)
     n_in_rz_z: np.ndarray | None = None        # (P, R, S, K_zones)
     nbr_overflow: np.ndarray | None = None     # (P, R, S) cells backend only
+    availability_c: np.ndarray | None = None   # (P, R, S, M, C)
+    on_frac_c: np.ndarray | None = None        # (P, R, S, C)
+    n_in_rz_c: np.ndarray | None = None        # (P, R, S, C)
+    fault_events: np.ndarray | None = None     # (P, R, S, 3)
     test_acc: np.ndarray | None = None         # (P, R, S)
     test_acc_holders: np.ndarray | None = None # (P, R, S)
     learn_obs: np.ndarray | None = None        # (P, R, S)
@@ -251,26 +279,28 @@ def _check_params(ps: Sequence[FGParams]) -> int:
 
 
 def _check_config(cfg: SimConfig) -> None:
-    """Raises ``NotImplementedError`` for what this port does not run."""
+    """Raises ``ValueError`` for a ``faults`` or ``learn`` that is not the
+    port's record and ``NotImplementedError`` for what this port does not
+    run."""
     backend = cells.contact_backend(cfg)        # raises on an unknown name
+    for field, kind in (("faults", faults.FaultConfig),
+                        ("learn", learning.LearnConfig)):
+        value = getattr(cfg, field)
+        if value is not None and not isinstance(value, kind):
+            raise ValueError(
+                f"SimConfig.{field} must be a {kind.__module__}."
+                f"{kind.__name__} (got {type(value).__name__})")
     later = None
+    zs = effective_zones(cfg)
     if cfg.mobility not in ("rdm", "replay"):
         later = f"mobility={cfg.mobility!r} (the rwp/manhattan slice)"
     elif cfg.speed_range is not None:
         later = "speed_range (the rwp/manhattan mobility slice)"
-    elif cfg.faults is not None and getattr(cfg.faults, "adversarial", False):
+    elif cfg.faults is not None and cfg.faults.adversarial:
         later = ("an adversarial fault configuration (the Byzantine slice: "
                  "the poisoned learning payloads)")
-    elif cfg.faults is not None and getattr(cfg.faults, "enabled", True):
-        later = "an enabled fault configuration (the faults slice)"
-    elif cfg.learn is not None and not isinstance(cfg.learn,
-                                                  learning.LearnConfig):
-        raise ValueError("SimConfig.learn must be a repro_torch.sim.learn."
-                         f"LearnConfig (got {type(cfg.learn).__name__})")
-    else:
-        zs = effective_zones(cfg)
-        if zs.k != 1 or zs.moving:
-            later = "multi-zone or drifting ZoneSets (the multizone slice)"
+    elif zs.k != 1 or zs.moving:
+        later = "multi-zone or drifting ZoneSets (the multizone slice)"
     if later is not None:
         on = " on the cell-list backend" if backend == "cells" else ""
         raise NotImplementedError(f"repro_torch does not run {later}{on} yet")
@@ -342,6 +372,30 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
     grid = cells.make_grid(cfg) if use_cells else None
     n_run = cfg.n_slots // cfg.sample_every * cfg.sample_every
 
+    # ---- fault constants: a None or disabled FaultConfig keeps every
+    # fault branch below dead, the key chain included ----
+    fc = cfg.faults if cfg.faults is not None and cfg.faults.enabled else None
+    if fc is not None:
+        n, dev = cfg.n_nodes, key.device
+        ids = faults.node_classes(fc, n)
+        cls1h_np = faults.class_onehot(fc, n)
+        cls1h = torch.from_numpy(cls1h_np).to(dev)
+        n_per_class = torch.tensor(cls1h_np.sum(axis=0), dtype=torch.float32,
+                                   device=dev)
+
+        def per_node(rates):
+            # per-slot probabilities 1 - exp(-rate dt), float64 -> float32
+            return torch.from_numpy(np.asarray(
+                [1.0 - np.exp(-r * dt) for r in rates], np.float32)[ids]
+            ).to(dev)
+
+        p_off = per_node([c.rate_off for c in fc.classes])
+        p_on = per_node([c.rate_on for c in fc.classes])
+        p_crash = faults.threshold(1.0 - np.exp(-fc.crash_rate * dt))
+        p_link = float(1.0 - np.exp(-fc.link_fail_rate * dt))
+        is_fr = torch.from_numpy(np.asarray(
+            [c.free_rider for c in fc.classes], bool)[ids]).to(dev)
+
     lc = cfg.learn
     if lc is not None:
         if task is None:
@@ -359,6 +413,19 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
     for slot in range(n_run):
         t_now = float(np.float32(slot) * np.float32(dt))
         key, k_mob1, k_mob2, k_obs, k_who = jr.split(key, 5).unbind(-2)
+        access = access_seed = None
+        if fc is not None:
+            # the fault layer's keys come from a second split, so the base
+            # split (and every fault-free draw) is untouched; its four
+            # draws (duty, crash, link, abort) and the duty chain run once
+            # a seed
+            sub = jr.split(key, 5)
+            key = sub[..., 0, :]
+            u_duty, u_crash, u_link, u_abort = faults.slot_draws(
+                sub[..., 1:, :], cfg.n_nodes)
+            availw, access_seed = faults.duty_step(u_duty, state.availw,
+                                                   p_off, p_on)
+            access = rows(access_seed)
 
         # ---- mobility and zone membership (once a seed), zone churn ----
         mob = model.step(k_mob1, k_mob2, state.mob, cfg)
@@ -374,32 +441,48 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
         inc, has_model = churned["inc"], churned["has_model"]
         tq_model, mq_model = churned["tq_model"], churned["mq_model"]
         serving, serv_left = churned["serving"], churned["serv_left"]
+        drop = left
+        if fc is not None:
+            # crash-restart: the same drop path; the node stays (and on)
+            crashed = rows(u_crash < p_crash)
+            dropped = faults.drop_state(
+                crashed, inc=inc, has_model=has_model, tq_model=tq_model,
+                mq_model=mq_model, serving=serving, serv_left=serv_left)
+            inc, has_model = dropped["inc"], dropped["has_model"]
+            tq_model, mq_model = dropped["tq_model"], dropped["mq_model"]
+            serving, serv_left = dropped["serving"], dropped["serv_left"]
+            drop = left | crashed
         if lc is not None:
             # learning churn: the replica goes back to the shared init
             lrn = learning.reset_replicas(
-                left, state.theta, state.theta_cnt, state.theta_age,
+                drop, state.theta, state.theta_cnt, state.theta_age,
                 task.theta0, peer_fill=state.peer_fill if trimmed_on else None)
 
         # ---- contact sweep. Dense: shared matrix on the CPU (once a
         # seed), fused kernel later on a CUDA device, over all B rows (then
         # the O(N) recompute gives the proximity bit). Cells: bounded
         # neighbour lists from the cell grid (once a seed), and the O(N)
-        # recompute for the proximity bit.
+        # recompute for the proximity bit. Accessibility (seed-only) is
+        # folded into the zone words of either.
         if use_cells:
             nbr, ovf = (rows(t) for t in cells.neighbor_lists(
-                mob.pos, zonew_seed, grid, r_tx2))
+                mob.pos, zonew_seed, grid, r_tx2, access_seed))
             still_close = contacts.pair_still_close(
-                pos, zonew, state.partner, r_tx2)
+                pos, zonew, state.partner, r_tx2, access)
         else:
-            closew_shared, ctx = contacts.pairwise_close(mob.pos, zonew_seed,
-                                                         r_tx2)
+            closew_shared, ctx = contacts.pairwise_close(
+                mob.pos, zonew_seed, r_tx2, access_seed)
             ctx = tuple(rows(c) if torch.is_tensor(c) else c for c in ctx)
             if closew_shared is None:
                 still_close = contacts.pair_still_close(
-                    pos, zonew, state.partner, r_tx2)
+                    pos, zonew, state.partner, r_tx2, access)
             else:
                 still_close = contacts.partner_close_bit(
                     rows(closew_shared), state.partner)
+        if fc is not None:
+            # a failed link breaks the exchange like moving out of range
+            lfail = faults.link_fail(u_link, p_link, state.partner)
+            still_close = still_close & ~lfail
         elapsed, _, _, ending, eff_time, pidx = contacts.advance_exchanges(
             partner=state.partner, exch_elapsed=state.exch_elapsed,
             exch_total=state.exch_total, still_close=still_close, dt=dt,
@@ -409,6 +492,9 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
             snap=state.snap, pidx=pidx, eff_time=eff_time, ending=ending,
             t0=t0, T_L=T_L,
         )
+        if fc is not None:
+            # free-riders receive but never serve
+            delivered = faults.gate_deliveries(delivered, pidx, is_fr)
         if lc is not None:
             # learning merge: the sender's connection-time snapshot
             lrn.update(learning.merge_deliveries(
@@ -426,6 +512,9 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
         # ---- release ending pairs, form new connections ----
         partner = torch.where(ending, -1, state.partner)
         elig = (partner < 0) & in_rz
+        if fc is not None:
+            # redundant with the folded zone words; keeps it explicit
+            elig = elig & access
         if use_cells:
             best, has = cells.candidate_best(pos, nbr, state.prev_close,
                                              elig)
@@ -434,6 +523,9 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
         else:
             closew, match = contacts.match_candidates(ctx, state.prev_close,
                                                       elig)
+        if fc is not None:
+            # connection-setup abort, one coin a pair
+            match, aborted = faults.abort_matches(u_abort, fc.p_abort, match)
         conn = contacts.form_connections(
             partner=partner, match=match, has_model=has_model, inc=inc,
             snap=state.snap, snap_has=state.snap_has, exch_elapsed=elapsed,
@@ -452,15 +544,18 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
         obs_birth, obs_head, inc, want_train, slot_payload = (
             observations.generate_observations(
                 k_obs=k_obs, k_who=k_who, obs_birth=state.obs_birth,
-                obs_head=state.obs_head, inc=inc, in_rz=in_rz,
+                obs_head=state.obs_head, inc=inc,
+                in_rz=in_rz if fc is None else in_rz & access,
                 lam=p_dyn["lam"], Lam=p_dyn["Lam"], dt=dt, t_now=t_now,
             ))
         tq_model, tq_slot = compute.enqueue_ascending(
             tq_model, want_train, (state.tq_slot, slot_payload))
 
-        # ---- compute server: finish jobs, then pick next (merge first) ----
+        # ---- compute server: finish jobs, then pick next (merge first);
+        # an off node's timer freezes and it starts no job ----
         serv_left, fin_merge, fin_train = compute.advance_timers(
-            serving, serv_left, dt)
+            serving, serv_left,
+            dt if fc is None else torch.where(access, dt, 0.0))
         inc, has_model = observations.apply_completions(
             fin_merge=fin_merge, fin_train=fin_train,
             serv_model=state.serv_model, serv_mask=state.serv_mask,
@@ -490,12 +585,19 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
             serving=serving, serv_left=serv_left, serv_model=state.serv_model,
             serv_mask=state.serv_mask, serv_slot=state.serv_slot,
             mq_model=mq_model, mq_mask=mq_mask, tq_model=tq_model,
-            tq_slot=tq_slot, T_M=T_M, T_T=T_T,
+            tq_slot=tq_slot, T_M=T_M, T_T=T_T, can_serve=access,
         )
+        fault_kw = {}
+        if fc is not None:
+            events = torch.stack([
+                aborted.sum(-1), ((state.partner >= 0) & lfail).sum(-1),
+                crashed.sum(-1)], -1).to(torch.int32)
+            fault_kw = dict(availw=availw,
+                            fault_events=state.fault_events + events)
         state = state.replace(
             mob=mob, prev_close=closew, inc=inc, has_model=has_model,
             obs_birth=obs_birth, obs_head=obs_head, tq_slot=tq_slot,
-            mq_mask=mq_mask, zone_prev=zonew, **conn, **served,
+            mq_mask=mq_mask, zone_prev=zonew, **conn, **served, **fault_kw,
             **(lrn if lc is not None else {}),
             **(dict(nbr_overflow=torch.maximum(state.nbr_overflow, ovf))
                if use_cells else {}),
@@ -510,6 +612,12 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
             )
             if use_cells:
                 out["nbr_overflow"] = state.nbr_overflow
+            if fc is not None:
+                out.update(faults.fault_outputs(
+                    on=rows(compute.unpack_mask(state.availw, cfg.n_nodes)),
+                    in_rz=state.zone_prev != 0, has_model=state.has_model,
+                    cls1h=cls1h, n_per_class=n_per_class,
+                    fault_events=state.fault_events))
             if lc is not None:
                 out.update(learning.learn_outputs(
                     lc, task, state.theta, state.theta_cnt,
@@ -522,14 +630,18 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
 def mobility_track(cfg: SimConfig, seed: int = 0, device=None) -> np.ndarray:
     """``(n_slots + 1, N, 2)`` positions of ``cfg.mobility`` under the
     engine's key schedule (what ``simulate`` moves the nodes through), for
-    replaying with ``mobility="replay"``."""
+    replaying with ``mobility="replay"``. An enabled ``cfg.faults`` adds
+    its key split a slot, as the engine does."""
     device = resolve_device(device, "simulate")
     model = get_mobility(cfg.mobility)
     key = jr.PRNGKey(seed, device=device)[None]
     mob, key = model.init(key, cfg)
     frames = [mob.pos]
+    faulted = cfg.faults is not None and cfg.faults.enabled
     for _ in range(cfg.n_slots):
         key, k1, k2, _, _ = jr.split(key, 5).unbind(-2)
+        if faulted:
+            key = jr.split(key, 5)[..., 0, :]
         mob = model.step(k1, k2, mob, cfg)
         frames.append(mob.pos)
     return torch.stack(frames)[:, 0].cpu().numpy()

@@ -27,7 +27,7 @@ __all__ = ["SimState", "init_sim_state", "queue_dtypes", "state_from_numpy",
 
 #: Fields holding packed uint32 words (int32 here, uint32 in ``repro``).
 WORD_FIELDS = ("snap", "order_seed", "prev_close", "inc", "mq_mask",
-               "serv_mask", "zone_prev")
+               "serv_mask", "zone_prev", "availw")
 
 
 def queue_dtypes(M: int, k_obs: int):
@@ -66,6 +66,13 @@ class SimState:
     serv_slot: torch.Tensor      # (B, N) train payload being served
     zone_prev: torch.Tensor      # (B, N) zone-membership word last slot
     nbr_overflow: torch.Tensor   # (B,) int32, always 0 on the dense backend
+    # --- fault carry (None unless cfg.faults is an enabled FaultConfig;
+    # see repro_torch.sim.faults) ---
+    availw: Any = None           # (R, ceil(N/32)) int32 packed on/off
+                                 # accessibility, one row a seed (the duty
+                                 # chain draws on the seed's keys only)
+    fault_events: Any = None     # (B, 3) int32 cumulative abort / link-fail
+                                 # / crash node events
     # --- learning carry (None unless cfg.learn is enabled; see
     # repro_torch.sim.learn — D = flat parameter dim of the learned model) ---
     theta: Any = None            # (B, N, D) live replica parameters
@@ -90,7 +97,9 @@ def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg,
     its device. A ``cfg.learn`` adds the learning carry, from
     ``task`` (a ``repro_torch.sim.learn.LearnTask``; drawn from the config
     when None). With the cells backend the close carry is the bounded
-    neighbour list, ``(B, N, nbr_cap)`` int32 filled with -1."""
+    neighbour list, ``(B, N, nbr_cap)`` int32 filled with -1. An enabled
+    ``cfg.faults`` adds the fault carry: every node on, on as many rows as
+    ``mob_state`` has (one a seed), and no events."""
     b, n = zone0.shape
     k, qt, qm = cfg.k_obs, cfg.q_train, cfg.q_merge
     kw, nw = (k + 31) // 32, (n + 31) // 32
@@ -129,8 +138,20 @@ def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg,
         serv_slot=full((b, n), 0, torch.int32),
         zone_prev=zone0,
         nbr_overflow=full((b,), 0, torch.int32),
+        **_fault_fields(cfg, mob_state.pos.shape[0], b, n, dev),
         **_learn_fields(cfg, task, b, n, dev),
     )
+
+
+def _fault_fields(cfg, r: int, b: int, n: int, device) -> dict:
+    fc = cfg.faults
+    if fc is None or not fc.enabled:
+        return {}
+    from repro_torch.sim import faults
+
+    return dict(availw=faults.init_avail(r, n, device),
+                fault_events=torch.zeros((b, faults.N_EVENTS),
+                                         dtype=torch.int32, device=device))
 
 
 def _learn_fields(cfg, task, b: int, n: int, device) -> dict:
@@ -169,18 +190,19 @@ def state_to_numpy(state: SimState, cfg, item: int = 0) -> dict:
     """Batch item ``item`` of ``state`` in ``repro``'s layout (numpy,
     uint32 words); the inverse of :func:`state_from_numpy`. ``cfg`` is the
     configuration the state runs: on its cells backend ``prev_close`` is
-    the int32 neighbour list, not words."""
+    the int32 neighbour list, not words. Fields carried one row a seed
+    (``mob``, ``availw``) give row ``item % R``, the item's seed."""
     cells = contact_backend(cfg) == "cells"
     words = tuple(f for f in WORD_FIELDS
                   if not (cells and f == "prev_close"))
 
     def conv(name, t):
-        a = t[item].cpu().numpy()
+        a = t[item % t.shape[0]].cpu().numpy()
         return a.view(np.uint32) if name in words else a
 
     out = {f.name: conv(f.name, getattr(state, f.name))
            for f in dataclasses.fields(SimState)
            if f.name != "mob" and getattr(state, f.name) is not None}
-    out["mob"] = {f.name: getattr(state.mob, f.name)[item].cpu().numpy()
+    out["mob"] = {f.name: conv(f.name, getattr(state.mob, f.name))
                   for f in dataclasses.fields(state.mob)}
     return out

@@ -71,13 +71,21 @@ REDUCERS = ("trace", "mean", "final", "quantiles", "o_tau")
 _LIGHT_KEYS = ("availability", "busy_frac", "stored", "model_holders",
                "n_in_rz", "availability_z", "stored_z", "n_in_rz_z")
 
+#: Fault telemetry (enabled ``FaultConfig`` only; trailing class axis C),
+#: reduced like the light keys; the cumulative ``fault_events`` ride every
+#: reduction as their final sample, like ``nbr_overflow``.
+_FAULT_KEYS = ("availability_c", "on_frac_c", "n_in_rz_c")
+
 #: Learning telemetry (enabled ``LearnConfig`` only), reduced like the
 #: light keys; the cumulative ``merge_stats`` ride every reduction as their
 #: final sample, like ``nbr_overflow``.
 _LEARN_KEYS = ("test_acc", "test_acc_holders", "learn_obs", "theta_var")
 
+#: The optional reduced quantities, in ``repro``'s order.
+_EXTRA_KEYS = _FAULT_KEYS + _LEARN_KEYS
+
 #: Cumulative counters: every reduction keeps their final sample.
-_RIDERS = ("nbr_overflow", "merge_stats")
+_RIDERS = ("nbr_overflow", "fault_events", "merge_stats")
 
 #: ``BatchSimOutputs`` field of each engine output that is named otherwise.
 _FIELD = {"stored": "stored_info", "stored_z": "stored_info_z"}
@@ -201,6 +209,10 @@ def _sample_shapes(cfg: SimConfig, M: int, trace: str) -> dict:
                    obs_holders=((M, cfg.k_obs), i32))
     if cells.contact_backend(cfg) == "cells":
         out["nbr_overflow"] = ((), i32)
+    if cfg.faults is not None and cfg.faults.enabled:
+        c = cfg.faults.n_classes
+        out.update(availability_c=((M, c), f32), on_frac_c=((c,), f32),
+                   n_in_rz_c=((c,), i32), fault_events=((3,), i32))
     if cfg.learn is not None:
         out.update({k: ((), f32) for k in _LEARN_KEYS})
         out["merge_stats"] = ((6,), i32)
@@ -223,13 +235,13 @@ def expected_shapes(cfg: SimConfig, M: int, plan: SweepPlan, reduce: str,
         s = cfg.n_slots // cfg.sample_every
         return {k: ShapeDtype(lead + (s,) + tail, dt)
                 for k, (tail, dt) in per.items()}
-    keys = [k for k in _LIGHT_KEYS + _LEARN_KEYS if k in per]
+    keys = [k for k in _LIGHT_KEYS + _EXTRA_KEYS if k in per]
     out = {}
     if reduce == "o_tau":
         out = {k: ShapeDtype(lead + (tau[0],), f32)
                for k in ("o_tau_num", "o_tau_den")}
         out.update({k: ShapeDtype(lead + per[k][0], per[k][1])
-                    for k in keys if k in _LEARN_KEYS})
+                    for k in keys if k in _EXTRA_KEYS})
     elif reduce == "mean":
         for k in keys:
             out[k] = out[k + "_std"] = ShapeDtype(lead + per[k][0], f32)
@@ -246,7 +258,7 @@ def expected_shapes(cfg: SimConfig, M: int, plan: SweepPlan, reduce: str,
 def _reduce_outs(outs: dict, reduce: str, s0: int, qs, tau, t) -> dict:
     """Per-run reduction over the sample axis (axis 2) of ``(P, R, S, ...)``
     device tensors; ``t`` is the ``(S,)`` float32 sample times."""
-    keys = _LIGHT_KEYS + tuple(k for k in _LEARN_KEYS if k in outs)
+    keys = _LIGHT_KEYS + tuple(k for k in _EXTRA_KEYS if k in outs)
     if reduce == "o_tau":
         from repro_torch.sim.observations import o_tau_histograms
 
@@ -257,7 +269,8 @@ def _reduce_outs(outs: dict, reduce: str, s0: int, qs, tau, t) -> dict:
             model_holders=outs["model_holders"][:, :, s0:].float(),
             n_tau=n_tau, dtau=dtau)
         red = {"o_tau_num": num, "o_tau_den": den}
-        # the learning telemetry rides the o_tau reduction as final samples
+        # the fault and learning telemetry ride the o_tau reduction as
+        # final samples
         for k in keys[len(_LIGHT_KEYS):]:
             red[k] = outs[k][:, :, -1]
     elif reduce == "mean":
@@ -608,8 +621,9 @@ def run(ps: Sequence[FGParams] | FGParams, cfg: SimConfig,
                   ``"quantiles"`` (linear, levels on the trailing axis),
                   ``"o_tau"`` (the o(τ) histograms ``o_tau_num`` /
                   ``o_tau_den`` and their ratio ``o_tau``; needs
-                  ``tau_grid``). ``nbr_overflow`` and ``merge_stats`` ride
-                  every reduction as their final sample.
+                  ``tau_grid``). ``nbr_overflow``, ``fault_events`` and
+                  ``merge_stats`` ride every reduction as their final
+                  sample.
       warmup_frac: samples discarded before reducing (default
                   ``cfg.warmup_frac``).
       chunk_size: scenarios a chunk (None: one chunk); each chunk's next

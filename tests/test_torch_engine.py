@@ -7,7 +7,8 @@
     equals the port's own ``init_sim_state``, and ``state_to_numpy``
     carries it back.
 (c) The port runs free on the CPU; without CUDA the default device raises;
-    configurations outside this slice raise ``NotImplementedError``.
+    configurations outside this slice raise ``NotImplementedError``, and
+    a ``faults`` that is not the port's ``FaultConfig`` ``ValueError``.
 """
 
 import dataclasses
@@ -30,11 +31,13 @@ from repro.sim.faults import FaultConfig as RFaultConfig
 from repro.sim.mobility import get_mobility as rget
 from repro.sim.state import init_sim_state as r_init_state
 from repro_torch import random as tr
+from repro_torch.configs.fg_faults import harsh
 from repro_torch.configs.fg_learn import logreg_task
 from repro_torch.configs.fg_paper import paper_params
 from repro_torch.core.zones import ZoneSet
 from repro_torch.sim import SimConfig, estimate_o_of_tau, simulate
 from repro_torch.sim.engine import mobility_track
+from repro_torch.sim.faults import FaultClass, FaultConfig
 from repro_torch.sim.mobility import get_mobility
 from repro_torch.sim.state import (init_sim_state, state_from_numpy,
                                    state_to_numpy)
@@ -190,25 +193,37 @@ def test_default_device_without_cuda_raises():
         simulate(paper_params(), SimConfig(**GEOM))
 
 
-@pytest.mark.parametrize("change,slice_name", [
-    (dict(contact_backend="cells", zones=ZoneSet(
-        centers=((20.0, 20.0), (40.0, 40.0)), radii=(15.0, 15.0))),
+TWO_ZONES = ZoneSet(centers=((20.0, 20.0), (40.0, 40.0)), radii=(15.0, 15.0))
+
+
+@pytest.mark.parametrize("change,error,match", [
+    (dict(contact_backend="cells", zones=TWO_ZONES), NotImplementedError,
      "cell-list"),
-    (dict(contact_backend="cells", faults=object()), "cell-list"),
-    (dict(mobility="rwp"), "rwp"),
-    (dict(speed_range=(0.5, 1.5)), "speed_range"),
-    (dict(learn=logreg_task(), faults=object()), "faults slice"),
-    (dict(learn=logreg_task(), faults=RFaultConfig(classes=(
-        RFaultClass(frac=0.5),
-        RFaultClass(frac=0.5, adv_mode="signflip", adv_scale=1.0)))),
-     "Byzantine slice"),
-    (dict(zones=ZoneSet(centers=((20.0, 20.0), (40.0, 40.0)),
-                        radii=(15.0, 15.0))), "multi-zone"),
-])
-def test_configurations_outside_the_slice_raise(change, slice_name):
+    # an enabled fault configuration runs, but not across two zones
+    (dict(contact_backend="cells", faults=harsh(), zones=TWO_ZONES),
+     NotImplementedError, "multi-zone.*cell-list"),
+    (dict(mobility="rwp"), NotImplementedError, "rwp"),
+    (dict(speed_range=(0.5, 1.5)), NotImplementedError, "speed_range"),
+    # faults must be the port's own record: not an object, not repro's
+    (dict(learn=logreg_task(), faults=object()), ValueError,
+     "repro_torch.sim.faults.FaultConfig"),
+    (dict(learn=logreg_task(), faults=FaultConfig(classes=(
+        FaultClass(frac=0.5),
+        FaultClass(frac=0.5, adv_mode="signflip", adv_scale=1.0)))),
+     NotImplementedError, "Byzantine slice"),
+    (dict(zones=TWO_ZONES), NotImplementedError, "multi-zone"),
+], ids=["change0-cell-list", "change1-cell-list", "change2-rwp",
+        "change3-speed_range", "change4-faults slice",
+        "change5-Byzantine slice", "change6-multi-zone"])
+def test_configurations_outside_the_slice_raise(change, error, match):
     cfg = SimConfig(**{**GEOM, **change})
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(error, match=match):
         simulate(paper_params(), cfg, device="cpu")
+    if change.get("faults") is not None and error is ValueError:
+        cfg = dataclasses.replace(cfg, faults=RFaultConfig(classes=(
+            RFaultClass(frac=0.5), RFaultClass(frac=0.5, free_rider=True))))
+        with pytest.raises(ValueError, match="FaultConfig"):
+            simulate(paper_params(), cfg, device="cpu")
 
 
 def test_repro_zone_set_shape_is_kept():

@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.core.meanfield", "repro_torch.core.dde",
                  "repro_torch.core.capacity", "repro_torch.core.staleness",
                  "repro_torch.configs.fg_paper", "repro_torch.sim.sweep",
-                 "repro_torch.sim.dispatch", "repro_torch.checkpoint.ckpt"):
+                 "repro_torch.sim.dispatch", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.sim.faults", "repro_torch.configs.fg_faults"):
         assert name in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -374,11 +374,13 @@ def test_refusals():
                   device="cpu")
     for bad in (dict(mobility="rwp"),
                 dict(zones=ZoneSet(centers=((50.0, 50.0), (150.0, 150.0)),
-                                   radii=(40.0, 40.0))),
-                dict(faults=dataclasses.make_dataclass(
-                    "F", [("enabled", bool, True)])())):
+                                   radii=(40.0, 40.0)))):
         with pytest.raises(NotImplementedError):
             sweep.run(ps, SimConfig(**GEOM, **bad), [0], device="cpu")
+    # a duck-typed fault record is not the port's FaultConfig
+    duck = dataclasses.make_dataclass("F", [("enabled", bool, True)])()
+    with pytest.raises(ValueError, match="repro_torch.sim.faults.FaultConfig"):
+        sweep.run(ps, SimConfig(**GEOM, faults=duck), [0], device="cpu")
     with pytest.raises(ValueError, match="replay"):
         sweep.run(ps, SimConfig(**GEOM, mobility="replay"), [0],
                   device="cpu")
