@@ -177,16 +177,33 @@ Phases (any failure ends the run with a non-zero exit code):
     the contact kernel held to its plain version on the sweep's last
     inputs and timed, and profiles of the faulted sweep and of the same
     sweep without faults (kernels and device time a slot).
+28. attack-replay — the Byzantine path: ``harsh_adversarial()`` (sign
+    flippers at 4x, metadata liars, crashes) with ``robust_defense()`` and
+    ``logreg_task()`` at the learning point, dense N = 200, 304 slots, on
+    the card replaying the CPU's positions: every protocol trace, fault
+    field, ``poisoned_frac``, ``poisoned_frac_c`` and ``merge_stats`` bit
+    for bit, the learning traces within ``LEARN_TOL``, one launch of
+    ``gossip_merge_rows_scaled`` a slot (the norm clip on sign-flipped
+    payloads), held to its plain version on the run's last merges; then an
+    undefended B = 2 ``harsh_adversarial()`` sweep (160 slots) whose rows
+    equal B = 1 card runs bit for bit on the same fields (one launch of
+    ``gossip_merge_rows`` a slot, held to its plain version); it prints
+    the scaled merge's launches on poisoned payloads, the norm clips and
+    distance rejections, and the final ``poisoned_frac`` with and without
+    the defense. After the second process has ended, profiles of the
+    attack path and of the same path with every class honest (kernels and
+    device time a slot).
 
 Order: 1-4, 9, 13 and 25 (the kernel checks), the analytics of 7 and 27;
 then two processes on the card at once, both bound by the host's launch
 rate: this one runs the long sweeps of 7 (mf-check) and 27 (faults-check),
 a second one (spawned, ``side_phases``) the phases that only check (the
-sweep phases, 5, 10, 6, 26, 11, 14's replays, 18 and 22), with every
+sweep phases, 5, 10, 6, 26, 11, 28, 14's replays, 18 and 22), with every
 replay's CPU run queued at its start in a worker process of its own
 (spawned, at most 4 threads). When the second process has ended, on a
 quiet card, this one times: the kernels on 7's and 27's last inputs and
-their profiles, then 8, 12, 15, 16, 17, 19, 20, 21, 23 and 24.
+their profiles, then 8, 28's profiles, 12, 15, 16, 17, 19, 20, 21, 23 and
+24.
 
 The run lengths above are cut to keep the script near half its 1200 s
 limit on a slow host (the simulator is bound by the host's launch rate):
@@ -224,6 +241,8 @@ from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.configs.fg_paper import (DENSITY,  # noqa: E402
                                           paper_contact_model,
                                           paper_params)
+from repro_torch.configs.fg_adversarial import (  # noqa: E402
+    harsh_adversarial, robust_defense)
 from repro_torch.configs.fg_faults import harsh, zipf_mix  # noqa: E402
 from repro_torch.configs.fg_learn import logreg_task, mlp_task  # noqa: E402
 from repro_torch.core import gossip  # noqa: E402
@@ -1318,12 +1337,10 @@ def lerp_rows_scaled(own, peer, w, scale, s):
                        torch.lerp(scale[:, None] * peer, own, w[:, None]), own)
 
 
-def held_on_run_inputs(rec: Recorder, kern, plain, library,
-                       bound_fn) -> dict:
-    """The kernel against its plain version on every recorded call of a
-    run, bit for bit; then the kernel, its plain version and the library
-    composition timed on the busiest call (B = 1 -> (N, ...)), beside the
-    bound for that call's selected rows."""
+def held_to_plain(rec: Recorder, kern, plain) -> tuple[int, float]:
+    """The kernel against its plain version on every recorded call, bit for
+    bit: ``(selected rows, max abs difference)``. Checks only: the side
+    process times nothing."""
     rows, worst = 0, 0.0
     for args, kw in rec.calls:
         got, want = kern(*args, **kw), plain(*args, **kw)
@@ -1336,6 +1353,16 @@ def held_on_run_inputs(rec: Recorder, kern, plain, library,
         rows += int(args[-1].sum())
     if rows == 0:
         raise AssertionError(f"{rec.name}: the recorded calls merged no row")
+    return rows, worst
+
+
+def held_on_run_inputs(rec: Recorder, kern, plain, library,
+                       bound_fn) -> dict:
+    """The kernel against its plain version on every recorded call of a
+    run, bit for bit; then the kernel, its plain version and the library
+    composition timed on the busiest call (B = 1 -> (N, ...)), beside the
+    bound for that call's selected rows."""
+    rows, worst = held_to_plain(rec, kern, plain)
     args, kw = max(rec.calls, key=lambda c: int(c[0][-1].sum()))
     flat = tuple(a[0].contiguous() for a in args)
     n, d = flat[0].shape
@@ -1853,6 +1880,137 @@ def faults_replay(refs: dict, sweep_slots: int = 200) -> dict:
         f"{out['sweep']['launches']}; sweep {wall:.1f}s")
     phase("faults-replay", "; ".join(lines))
     return out
+
+
+#: The Byzantine telemetry, held bit for bit wherever runs are compared.
+ATTACK_FIELDS = ("poisoned_frac", "poisoned_frac_c", "merge_stats")
+
+
+class PoisonedMerges:
+    """Wraps ``learning.merge_deliveries`` while a run goes: for each call
+    (one merge kernel launch), the poisoned payloads it received, kept on
+    the device; read once after the run."""
+
+    def __init__(self):
+        self.fn, self.poisoned = learning.merge_deliveries, []
+
+    def __call__(self, *args, merge_stats, **kw):
+        out = self.fn(*args, merge_stats=merge_stats, **kw)
+        k = learning.MS_ATTEMPT_POISON
+        self.poisoned.append(out["merge_stats"][..., k] - merge_stats[..., k])
+        return out
+
+    def __enter__(self):
+        learning.merge_deliveries = self
+        return self
+
+    def __exit__(self, *exc):
+        learning.merge_deliveries = self.fn
+
+    def launches(self) -> int:
+        """Calls that merged at least one poisoned payload in some row."""
+        return int((torch.stack(self.poisoned).sum(-1) > 0).sum())
+
+
+def attack_replay(refs: dict, sweep_slots: int = 160) -> dict:
+    """The Byzantine path on the card. ``harsh_adversarial()`` with
+    ``robust_defense()`` replaying the CPU's positions (N = 200, 304 slots):
+    every protocol trace, fault field and the Byzantine telemetry bit for
+    bit, the learning traces within ``LEARN_TOL``, the scaled merge (the
+    norm clip) held to its plain version on the run's last merges. Then the
+    undefended attack as a B = 2 sweep (seeds 0 and 1) whose rows equal
+    B = 1 card runs, the row merge held to its plain version."""
+    p, cfg, task = replay_case("attack")
+    cpu, track, t_cpu = refs["attack"].result()
+    n_slots = slots_run(cfg)
+    with Recorder("gossip_merge_rows_scaled") as rec_s, \
+            PoisonedMerges() as pm:
+        reset_counts()
+        t = time.perf_counter()
+        gpu = simulate(p, dataclasses.replace(cfg, mobility="replay"),
+                       seed=0, positions=track, task=task)
+        t_gpu = time.perf_counter() - t
+        launches = counts()
+    if launches != per_run(dict(DENSE_ONLY, gossip_merge_rows_scaled=1),
+                           n_slots):
+        raise AssertionError(f"attack-replay launches {launches}")
+    same_traces(cpu, gpu, "attack-replay: card != CPU",
+                TRACES + FAULT_FIELDS + ATTACK_FIELDS)
+    errs = {k: close(getattr(gpu, k), getattr(cpu, k), *LEARN_TOL[k],
+                     f"attack-replay {k}") for k in LEARN_TOL}
+    ms = gpu.merge_stats[-1]
+    if ms[learning.MS_ATTEMPT_POISON] <= 0 or ms[learning.MS_NORMCLIP] <= 0:
+        raise AssertionError(f"attack-replay: merge_stats {ms.tolist()}")
+    rows_s, worst_s = held_to_plain(rec_s, gm.gossip_merge_rows_scaled,
+                                    gm.gossip_merge_rows_scaled_ref)
+
+    ps = [paper_params(**LEARN_PARAMS)]
+    scfg = SimConfig(n_slots=sweep_slots, faults=harsh_adversarial(),
+                     learn=logreg_task())
+    with Recorder("gossip_merge_rows") as rec_r:
+        reset_counts()
+        t = time.perf_counter()
+        batch = sweep.run(ps, scfg, SWEEP_SEEDS)
+        wall = time.perf_counter() - t
+        swept = counts()
+    if swept != per_run(dict(DENSE_ONLY, gossip_merge_rows=1),
+                        slots_run(scfg)):
+        raise AssertionError(f"attack-replay sweep launches {swept}")
+    rows_r, worst_r = held_to_plain(rec_r, gm.gossip_merge_rows,
+                                    gm.gossip_merge_rows_ref)
+    for j, seed in enumerate(SWEEP_SEEDS):
+        one = simulate(ps[0], scfg, seed=seed)
+        same_rows(batch, 0, j, one, "attack-replay sweep",
+                  SWEEP_TRACES + FAULT_FIELDS + ATTACK_FIELDS)
+        for k in LEARN_TOL:
+            errs[k] = max(errs[k], close(
+                getattr(batch.point(0, j), k), getattr(one, k),
+                *LEARN_TOL[k], f"attack-replay sweep {k}"))
+    at = slots_run(scfg) // cfg.sample_every - 1
+    phase("attack-replay", (
+        f"harsh_adversarial() + robust_defense() N=200 {n_slots} slots: "
+        f"every trace, fault field, poisoned_frac, poisoned_frac_c and "
+        f"merge_stats bit for bit (card vs CPU), learning traces max abs "
+        f"diff {errs} within {LEARN_TOL}; launches={launches}; cpu "
+        f"{t_cpu:.1f}s (worker), gpu {t_gpu:.1f}s"))
+    phase("attack-replay", (
+        f"gossip_merge_rows_scaled launches {launches['gossip_merge_rows_scaled']}"
+        f", {pm.launches()} of them on poisoned payloads "
+        f"({int(ms[learning.MS_ATTEMPT_POISON])} poisoned of "
+        f"{int(ms[learning.MS_ATTEMPT])} merge attempts), == plain on the "
+        f"last {len(rec_s.calls)} merges ({rows_s} rows, max_abs_err="
+        f"{worst_s})"))
+    phase("attack-replay", (
+        f"norm clips {int(ms[learning.MS_NORMCLIP])}, distance rejections "
+        f"{int(ms[learning.MS_DISTREJ])} ({int(ms[learning.MS_DISTREJ_POISON])}"
+        f" of poisoned payloads)"))
+    phase("attack-replay", (
+        f"poisoned_frac with the defense {float(gpu.poisoned_frac[-1]):.6f} "
+        f"at slot {n_slots} ({float(gpu.poisoned_frac[at]):.6f} at slot "
+        f"{slots_run(scfg)}); without it {float(batch.poisoned_frac[0, 0, -1]):.6f}"
+        f" / {float(batch.poisoned_frac[0, 1, -1]):.6f} at slot "
+        f"{slots_run(scfg)} (seeds {SWEEP_SEEDS})"))
+    phase("attack-replay", (
+        f"undefended harsh_adversarial() sweep seeds {SWEEP_SEEDS} (B=2), "
+        f"{slots_run(scfg)} slots: rows equal B=1 card runs bit for bit on "
+        f"every trace, fault field and the Byzantine telemetry; "
+        f"gossip_merge_rows launches {swept['gossip_merge_rows']}, == plain "
+        f"on the last {len(rec_r.calls)} merges ({rows_r} rows, max_abs_err="
+        f"{worst_r}); sweep {wall:.1f}s"))
+    return dict(scaled_launches=launches["gossip_merge_rows_scaled"],
+                rows_launches=swept["gossip_merge_rows"],
+                max_abs_err=max(worst_s, worst_r))
+
+
+def attack_profiles() -> None:
+    """What the attack costs a slot: attack-replay's configuration free on
+    the card, profiled, and the same with every class honest (the same
+    protocol: classes, crashes and the defense, no poisoning)."""
+    p, cfg, _ = replay_case("attack")
+    profile_slots("attack", p, cfg)
+    honest = dataclasses.replace(cfg.faults, classes=tuple(
+        dataclasses.replace(c, adv_mode="none") for c in cfg.faults.classes))
+    profile_slots("attack off", p, dataclasses.replace(cfg, faults=honest))
 
 
 def class_solution(p, fc, device) -> tuple:
@@ -3145,6 +3303,11 @@ def replay_case(kind: str) -> tuple:
     if kind == "faults-dense":
         return (paper_params(lam=0.05, M=1),
                 SimConfig(n_slots=304, faults=harsh()), None)
+    if kind == "attack":
+        lc = dataclasses.replace(logreg_task(), defense=robust_defense())
+        return (paper_params(**LEARN_PARAMS),
+                SimConfig(n_slots=304, faults=harsh_adversarial(), learn=lc),
+                learning.make_task(lc, "cpu"))
     p, cfg = scaled_point(1024, {"cells-replay": 500, "faults-cells": 304}[kind])
     if kind == "faults-cells":
         cfg = dataclasses.replace(cfg, faults=harsh())
@@ -3153,7 +3316,7 @@ def replay_case(kind: str) -> tuple:
 
 #: The replay phases, in the order the script reaches them.
 REPLAYS = ("replay", "cells-replay", "logreg", "mlp", "faults-dense",
-           "faults-cells")
+           "faults-cells", "attack")
 
 
 def side_phases(start: float) -> dict:
@@ -3164,7 +3327,8 @@ def side_phases(start: float) -> dict:
     process of this one, queued at the start. ``start`` is the main
     process's clock origin (``time.perf_counter`` is one clock for all
     processes), so the phase lines' times agree. Returns faults-replay's
-    launches and differences, which enter the kernel record."""
+    and attack-replay's launches and differences, which enter the kernel
+    record."""
     global _START
     _START = start
     torch.set_num_threads(2)
@@ -3182,6 +3346,7 @@ def side_phases(start: float) -> dict:
         faulted = faults_replay(refs)
         sweep_learn()
         cells_vs_dense()
+        faulted["attack"] = attack_replay(refs)
         check_init_replay()
         check_round_replay()
         serve_replay()
@@ -3276,6 +3441,7 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
     cell_run = cells_run()
     rows = learn_run()
     scaled = defended_run()
+    attack_profiles()
     params, default, state = gossip_replicas()
     check_gossip_round(params, default, state)
     flat = rounds_run(params, default, state)
@@ -3291,12 +3457,15 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
     mgen = mamba_generate(mamba_cfg, mamba_params)
     del mamba_params
 
-    def merge_record(name, run, line):
+    attack = faulted["attack"]
+
+    def merge_record(name, run, line, attack_launches):
         return dict(
             name=name, route="cuda", source="src/repro_torch/csrc/gossip_merge.cu",
             replaces=f"src/repro/kernels/gossip_merge.py:{line}",
-            launches=run["launches"], max_abs_err=max(merge_worst,
-                                                      run["max_abs_err"]),
+            launches=run["launches"] + attack_launches,
+            max_abs_err=max(merge_worst, run["max_abs_err"],
+                            attack["max_abs_err"]),
             ms=run["ms"], plain_ms=run["plain_ms"], bound_ms=run["bound_ms"],
             bound_by=run["bound_by"], library_ms=run["library_ms"])
 
@@ -3312,8 +3481,9 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
         ms=main_run["ms"], plain_ms=main_run["plain_ms"],
         bound_ms=main_run["bound_ms"], bound_by=main_run["bound_by"],
         library_ms=None,
-    ), merge_record("gossip_merge_rows", rows, 116),
-        merge_record("gossip_merge_rows_scaled", scaled, 173), dict(
+    ), merge_record("gossip_merge_rows", rows, 116, attack["rows_launches"]),
+        merge_record("gossip_merge_rows_scaled", scaled, 173,
+                     attack["scaled_launches"]), dict(
         name="cell_close_words", route="cuda",
         source="src/repro_torch/csrc/cells.cu",
         replaces="src/repro/kernels/contacts.py:473",

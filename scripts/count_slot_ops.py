@@ -1,6 +1,8 @@
-"""What the fault layer adds to a slot, counted on the CPU: the aten
-operations a slot dispatches (each is one kernel launch on the card, but
-for views), with and without faults, and those of its draws.
+"""What the fault layer and the Byzantine attack add to a slot, counted on
+the CPU: the aten operations a slot dispatches (each is one kernel launch
+on the card, but for views), with and without faults, with learning under
+``robust_defense()`` with and without ``harsh_adversarial()``, and those
+of the draws.
 
     PYTHONPATH=src python scripts/count_slot_ops.py
 
@@ -16,8 +18,13 @@ from __future__ import annotations
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import dataclasses
+
 from repro_torch import random as jr
+from repro_torch.configs.fg_adversarial import (harsh_adversarial,
+                                                robust_defense)
 from repro_torch.configs.fg_faults import harsh, zipf_mix
+from repro_torch.configs.fg_learn import logreg_task
 from repro_torch.configs.fg_paper import paper_params
 from repro_torch.sim import SimConfig, faults, sweep
 
@@ -40,11 +47,11 @@ def counted(fn) -> int:
     return c.n
 
 
-def per_slot(fc) -> float:
-    p = paper_params(lam=0.05, M=1)
+def per_slot(fc, lc=None) -> float:
+    p = paper_params(lam=0.05, M=1, **({} if lc is None else dict(Lam=10.0)))
     n = [counted(lambda: sweep.run([p], SimConfig(n_slots=s, sample_every=8,
-                                                  faults=fc), (0, 1),
-                                   device="cpu"))
+                                                  faults=fc, learn=lc),
+                                   (0, 1), device="cpu"))
          for s in (16, 48)]
     return (n[1] - n[0]) / 32
 
@@ -53,6 +60,13 @@ def main() -> None:
     for label, fc in (("no faults", None), ("zipf_mix(3)", zipf_mix(
             n_classes=3)), ("harsh()", harsh())):
         print(f"{label}: {per_slot(fc)} aten ops a slot (B = 2, N = 200)")
+    defended = dataclasses.replace(logreg_task(), defense=robust_defense())
+    for label, fc in (("logreg + robust_defense()", None),
+                      ("logreg + robust_defense() + harsh()", harsh()),
+                      ("logreg + robust_defense() + harsh_adversarial()",
+                       harsh_adversarial())):
+        print(f"{label}: {per_slot(fc, defended)} aten ops a slot (B = 2, "
+              f"N = 200, Λ = 10)")
     key = jr.PRNGKey(0)[None]
     keys = jr.split(key, 4)
     print(f"split(key, 5): {counted(lambda: jr.split(key, 5))} ops; "

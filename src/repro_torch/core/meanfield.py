@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.core.mobility import ContactModel
 from repro_torch.core.zones import ZoneSet
-from repro_torch.numerics import row_sum32, sqrt32
+from repro_torch.numerics import fma32, row_sum32, sqrt32
 
 __all__ = ["FGParams", "MeanFieldSolution", "ClassSolution", "transfer_stats",
            "solve_fixed_point", "solve_fixed_point_batch",
@@ -489,7 +489,8 @@ def solve_fixed_point_classes(p: FGParams, contact: ContactModel,
         S, T_S = stats(a_serve)
         G = q_t[:, None] * (busy(T_S) * N_eff * S * w / T_S)[None, :]
         lt = lam * Lam_z[None, :] * q_t[:, None] / q_bar
-        gain = G * a_serve[None, :] + lt
+        # XLA contracts repro's `G * a_serve + lt` into one FMA
+        gain = fma32(G, a_serve[None, :], lt)
         a_new = gain / (gain + alpha_c)
         return 0.5 * a + 0.5 * torch.clamp(a_new, _EPS, 1.0)
 

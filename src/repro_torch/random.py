@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.numerics import erfinv32
 
-__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "normal"]
+__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "normal",
+           "erf_inv_draw", "SQRT2"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -118,10 +119,19 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-_SQRT2 = float(np.float32(np.sqrt(2.0)))
+#: float32 sqrt(2), the last factor of :func:`normal`.
+SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def erf_inv_draw(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """:func:`normal`'s draw before its product with ``SQRT2``: float32
+    ``erf_inv(u)``, ``u`` uniform in ``[nextafter(-1, 0), 1)``. Jitted XLA
+    folds a constant factor ``c`` of a normal draw into that product, so
+    there ``c * normal(key)`` is ``(c * SQRT2) * erf_inv_draw(key)``."""
+    return erfinv32(uniform(key, shape, minval=_NORMAL_LO))
 
 
 def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with ``u``
     uniform in ``[nextafter(-1, 0), 1)``."""
-    return _SQRT2 * erfinv32(uniform(key, shape, minval=_NORMAL_LO))
+    return SQRT2 * erf_inv_draw(key, shape)

@@ -1,7 +1,10 @@
 """The Floating Gossip Monte-Carlo simulator (port of ``repro.sim``): the
 slot loop on the dense and cell-list contact backends, with the protocol
-fault layer (``faults``, ``SimConfig.faults``) and Gossip Learning
-(``learn``, ``SimConfig.learn``), in single runs and sweeps."""
+fault layer (``faults``, ``SimConfig.faults``), Gossip Learning
+(``learn``, ``SimConfig.learn``) and the Byzantine attacks on it (the
+adversarial classes of ``SimConfig.faults``, presets in
+``repro_torch.configs.fg_adversarial``, reporting ``poisoned_frac``), in
+single runs and sweeps. The contamination mean field comes next."""
 
 from repro_torch.sim import faults, sweep
 from repro_torch.sim.engine import (BatchSimOutputs, SimConfig, SimOutputs,

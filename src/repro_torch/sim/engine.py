@@ -46,14 +46,27 @@ pair's coin. The per-class telemetry (``availability_c``, ``on_frac_c``,
 ``n_in_rz_c``) and the cumulative ``fault_events`` come back with every
 sample. A disabled configuration runs exactly the fault-free program.
 
+With learning on and an adversarial ``cfg.faults`` (Byzantine classes,
+``repro_torch.configs.fg_adversarial``) the attack rides the learning
+layer at ``repro``'s sites, gated apart from the protocol faults (an
+attack-only configuration runs the fault-free protocol bit for bit): the
+contamination flag resets with the replica, spreads through accepted
+poisoned payloads in the merge, is snapshotted with the parameters, and
+the attackers' fresh snapshots are poisoned
+(``learn.poison_snapshots``, drawing from the learning layer's own key
+chain). ``poisoned_frac`` and ``poisoned_frac_c`` come back with every
+sample. The contamination mean field and its transient come with the
+next slice.
+
 The port runs the paper's validation loop: ``rdm`` (or ``replay``)
 mobility at constant speed, a single static zone, any ``M``, with or
-without the protocol faults and learning (average or trimmed defenses),
-on either contact backend: the dense O(N²) sweep, or the cell lists of
-``repro_torch.sim.cells`` (``contact_backend="cells"``, or ``"auto"`` from
-``cells.AUTO_CELLS_MIN_N`` nodes up), whose running overflow count comes
-back as ``nbr_overflow``. Any other configuration raises
-``NotImplementedError`` naming the slice that will port it.
+without the protocol faults, learning (average or trimmed defenses) and
+the Byzantine attacks, on either contact backend: the dense O(N²)
+sweep, or the cell lists of ``repro_torch.sim.cells``
+(``contact_backend="cells"``, or ``"auto"`` from ``cells.AUTO_CELLS_MIN_N``
+nodes up), whose running overflow count comes back as ``nbr_overflow``.
+Any other configuration raises ``NotImplementedError`` naming the slice
+that will port it.
 """
 
 from __future__ import annotations
@@ -158,13 +171,17 @@ class SimOutputs:
     learn_obs: np.ndarray | None = None        # (S,) mean obs count / holder
     theta_var: np.ndarray | None = None        # (S,) mean parameter variance
     merge_stats: np.ndarray | None = None      # (S, 6) cumulative counters
+    # Byzantine telemetry (adversarial FaultConfig and learning only)
+    poisoned_frac: np.ndarray | None = None    # (S,) poisoned fraction of
+                                               # in-RZ holders
+    poisoned_frac_c: np.ndarray | None = None  # (S, C) per-class split
 
 
 #: The optional traces of ``SimOutputs``: the cells backend's overflow,
-#: the fault and the learning telemetry.
+#: the fault, the learning and the Byzantine telemetry.
 _OPTIONAL = ("nbr_overflow", "availability_c", "on_frac_c", "n_in_rz_c",
              "fault_events", "test_acc", "test_acc_holders", "learn_obs",
-             "theta_var", "merge_stats")
+             "theta_var", "merge_stats", "poisoned_frac", "poisoned_frac_c")
 
 
 @dataclasses.dataclass
@@ -197,6 +214,8 @@ class BatchSimOutputs:
     learn_obs: np.ndarray | None = None        # (P, R, S)
     theta_var: np.ndarray | None = None        # (P, R, S)
     merge_stats: np.ndarray | None = None      # (P, R, S, 6)
+    poisoned_frac: np.ndarray | None = None    # (P, R, S)
+    poisoned_frac_c: np.ndarray | None = None  # (P, R, S, C)
     plan: Any = None             # SweepPlan of the producing sweep
     devices_used: int | None = None
     host_bytes: int | None = None
@@ -296,9 +315,6 @@ def _check_config(cfg: SimConfig) -> None:
         later = f"mobility={cfg.mobility!r} (the rwp/manhattan slice)"
     elif cfg.speed_range is not None:
         later = "speed_range (the rwp/manhattan mobility slice)"
-    elif cfg.faults is not None and cfg.faults.adversarial:
-        later = ("an adversarial fault configuration (the Byzantine slice: "
-                 "the poisoned learning payloads)")
     elif zs.k != 1 or zs.moving:
         later = "multi-zone or drifting ZoneSets (the multizone slice)"
     if later is not None:
@@ -397,11 +413,20 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
             [c.free_rider for c in fc.classes], bool)[ids]).to(dev)
 
     lc = cfg.learn
+    adv_on = False
     if lc is not None:
         if task is None:
             task = learning.make_task(lc, key.device)
         dc = lc.active_defense
         trimmed_on = dc is not None and dc.mode == "trimmed"
+        # the Byzantine gate rides cfg.faults.adversarial, apart from the
+        # protocol-fault gate: attackers follow the protocol
+        adv_on = cfg.faults is not None and cfg.faults.adversarial
+        if adv_on:
+            adv = learning.attack_tensors(
+                faults.adv_vectors(cfg.faults, cfg.n_nodes), key.device)
+            cls1h_adv = torch.from_numpy(
+                faults.class_onehot(cfg.faults, cfg.n_nodes)).to(key.device)
 
     def zone_word(pos):
         return zone_words(_zone_member(pos, zs))
@@ -456,7 +481,8 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
             # learning churn: the replica goes back to the shared init
             lrn = learning.reset_replicas(
                 drop, state.theta, state.theta_cnt, state.theta_age,
-                task.theta0, peer_fill=state.peer_fill if trimmed_on else None)
+                task.theta0, poisoned=state.poisoned if adv_on else None,
+                peer_fill=state.peer_fill if trimmed_on else None)
 
         # ---- contact sweep. Dense: shared matrix on the CPU (once a
         # seed), fused kernel later on a CUDA device, over all B rows (then
@@ -501,7 +527,8 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
                 lc, delivered[..., learning.LEARN_MODEL], pidx, lrn["theta"],
                 lrn["theta_cnt"], lrn["theta_age"], state.theta_snap,
                 state.snap_cnt, state.snap_age, tau_l,
-                merge_stats=state.merge_stats,
+                merge_stats=state.merge_stats, poisoned=lrn.get("poisoned"),
+                snap_poison=state.snap_poison if adv_on else None,
                 peer_buf=state.peer_buf if trimmed_on else None,
                 peer_fill=lrn.get("peer_fill")))
         # merge only what adds information (Y of Definition 4)
@@ -533,12 +560,19 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
             slot_idx=slot, t0=t0, T_L=T_L,
         )
         if lc is not None:
-            # learning snapshot, beside the protocol's snap words
-            lrn["theta_snap"], lrn["snap_cnt"], lrn["snap_age"] = (
-                learning.snapshot_params(
-                    match >= 0, lrn["theta"], lrn["theta_cnt"],
-                    lrn["theta_age"], state.theta_snap, state.snap_cnt,
-                    state.snap_age))
+            # learning snapshot, beside the protocol's snap words; then the
+            # attack transforms what an attacker just snapshotted
+            newly = match >= 0
+            snap = learning.snapshot_params(
+                newly, lrn["theta"], lrn["theta_cnt"], lrn["theta_age"],
+                state.theta_snap, state.snap_cnt, state.snap_age,
+                poisoned=lrn.get("poisoned"),
+                snap_poison=state.snap_poison if adv_on else None)
+            if adv_on:
+                snap = learning.poison_snapshots(adv, task, slot, newly,
+                                                 *snap)
+                lrn["snap_poison"] = snap[3]
+            lrn["theta_snap"], lrn["snap_cnt"], lrn["snap_age"] = snap[:3]
 
         # ---- observations and the training enqueue ----
         obs_birth, obs_head, inc, want_train, slot_payload = (
@@ -622,7 +656,9 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
                 out.update(learning.learn_outputs(
                     lc, task, state.theta, state.theta_cnt,
                     has_model=state.has_model, in_rz=state.zone_prev != 0,
-                    merge_stats=state.merge_stats))
+                    merge_stats=state.merge_stats,
+                    poisoned=state.poisoned if adv_on else None,
+                    cls1h=cls1h_adv if adv_on else None))
             samples.append(out)
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 

@@ -20,10 +20,14 @@ Real opportunistic deployments see
 * **free-riders** — class-flagged nodes that receive model instances but
   never serve them.
 
-The Byzantine classes (``FaultClass.adv_mode``) are part of the
-configuration record, but the poisoned learning payloads (and
-``repro``'s ``adv_vectors``) come with a later slice: the engine refuses
-an adversarial configuration.
+* **Byzantine (adversarial) classes** — nodes that follow the protocol
+  but poison the learning payload they serve (``FaultClass.adv_mode``:
+  sign flip, noise, stale replay, metadata lies). The attack acts on the
+  served snapshot (``repro_torch.sim.learn.poison_snapshots``, with the
+  per-node vectors of :func:`adv_vectors`), never on the protocol state,
+  so an attack-only config keeps ``enabled == False`` and runs the
+  fault-free protocol; :attr:`FaultConfig.adversarial` gates the learning
+  layer's attack instead.
 
 A :class:`FaultConfig` whose rates are all zero reports ``enabled ==
 False``, and the engine then runs exactly the fault-free program (no extra
@@ -56,7 +60,8 @@ __all__ = [
     "FaultClass", "FaultConfig", "node_classes", "class_onehot",
     "init_avail", "slot_draws", "duty_step", "drop_state", "link_fail",
     "abort_matches", "gate_deliveries", "fault_outputs", "threshold",
-    "ADV_MODES", "EV_ABORT", "EV_LINKFAIL", "EV_CRASH", "N_EVENTS",
+    "adv_vectors", "ADV_MODES", "EV_ABORT", "EV_LINKFAIL", "EV_CRASH",
+    "N_EVENTS",
 ]
 
 #: Indices into the cumulative ``fault_events`` counters (node-level
@@ -172,6 +177,24 @@ def class_onehot(fc: FaultConfig, n: int) -> np.ndarray:
     """(N, C) bool class membership."""
     ids = node_classes(fc, n)
     return ids[:, None] == np.arange(fc.n_classes, dtype=np.int32)[None, :]
+
+
+def adv_vectors(fc: FaultConfig, n: int) -> dict:
+    """Per-node attack vectors (numpy, constants of a run): ``is_adv``
+    (N,) bool, one bool mask per attack mode (``signflip``, ``noise``,
+    ``replay``, ``liar``) and ``scale`` (N,) float32, each class's
+    ``adv_scale`` on its members."""
+    ids = node_classes(fc, n)
+    modes = np.asarray([c.adv_mode for c in fc.classes])[ids]
+    return dict(
+        is_adv=modes != "none",
+        signflip=modes == "signflip",
+        noise=modes == "noise",
+        replay=modes == "replay",
+        liar=modes == "liar",
+        scale=np.asarray([c.adv_scale for c in fc.classes],
+                         np.float32)[ids],
+    )
 
 
 def threshold(p) -> float:

@@ -23,9 +23,20 @@ back into the protocol: with learning on, every protocol trace equals the
 ``learn=None`` run's.
 
 Every tensor carries ``repro``'s shape behind a leading batch axis ``B``.
-Defenses run in the average and trimmed modes; the adversarial branches of
-``repro`` (``poisoned``, ``snap_poison``, ``poison_snapshots``) need
-``cfg.faults.adversarial`` and come with the faults slice.
+
+**Byzantine layer.** Under an adversarial ``cfg.faults`` (see
+``repro_torch.sim.faults``) the attackers poison the payload they serve:
+:func:`poison_snapshots` transforms the snapshot an attacker just took
+(sign flip, noise from the layer's own key chain, stale replay of θ0, or
+a lying count and age), so the receive path and every protocol trace stay
+as they are. The defenses (``LearnConfig.defense``) screen the peer inside
+:func:`merge_deliveries`, in the average and trimmed modes. A
+``poisoned`` flag spreads through accepted poisoned payloads (its
+snapshot ``snap_poison`` rides with the parameters), the poison-attributed
+``merge_stats`` counters count the attempts and rejections of poisoned
+payloads, and :func:`learn_outputs` reports ``poisoned_frac`` and its
+per-class split. The contamination solvers, the analytic twin of that
+flag, come with the next slice.
 """
 
 from __future__ import annotations
@@ -43,14 +54,16 @@ from repro_torch.core.merge import (DefenseConfig, clip_peer_counts,
 from repro_torch.kernels.gossip_merge import (gossip_merge_rows,
                                               gossip_merge_rows_scaled)
 from repro_torch.models import tiny
-from repro_torch.numerics import mean32
+from repro_torch.numerics import fma32, mean32
 from repro_torch.optim.optimizers import sgd
 from repro_torch.sim.contacts import take_nodes
 
 __all__ = ["LearnConfig", "LearnTask", "make_task", "task_from_numpy",
            "init_fields", "fields_from_numpy", "LEARN_FIELDS",
+           "ATTACK_FIELDS",
            "reset_replicas", "merge_deliveries", "snapshot_params",
-           "stream_batches", "train_completions", "learn_outputs",
+           "attack_tensors", "poison_snapshots", "stream_batches",
+           "train_completions", "learn_outputs",
            "LEARN_MODEL", "MS_ATTEMPT", "MS_ATTEMPT_POISON", "MS_NONFINITE",
            "MS_NORMCLIP", "MS_DISTREJ", "MS_DISTREJ_POISON", "N_MERGE_STATS",
            "CNT_CAP"]
@@ -72,6 +85,8 @@ CNT_CAP = 1.0e12
 #: The learning carry of ``SimState``; the last two only in trimmed mode.
 LEARN_FIELDS = ("theta", "theta_cnt", "theta_age", "theta_snap", "snap_cnt",
                 "snap_age", "merge_stats", "peer_buf", "peer_fill")
+#: ... and the contamination carry, under an adversarial fault config only.
+ATTACK_FIELDS = ("poisoned", "snap_poison")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,9 +186,13 @@ def task_from_numpy(theta0, w_true, x_test, y_test, stream_key,
                                 device=device))
 
 
-def init_fields(lc: LearnConfig, task: LearnTask, b: int, n: int) -> dict:
+def init_fields(lc: LearnConfig, task: LearnTask, b: int, n: int,
+                fc=None) -> dict:
     """Initial learning carry of ``b`` runs of ``n`` nodes: every replica
-    and snapshot at the shared init, counts and ages zero."""
+    and snapshot at the shared init, counts and ages zero. An adversarial
+    ``fc`` (the run's ``FaultConfig``) adds the clean contamination flags
+    ``poisoned`` and ``snap_poison``; a trimmed defense adds the empty
+    recent-peer buffer."""
     dev = task.theta0.device
     d = task.theta0.shape[0]
     theta = task.theta0.expand(b, n, d).contiguous()
@@ -184,6 +203,10 @@ def init_fields(lc: LearnConfig, task: LearnTask, b: int, n: int) -> dict:
         snap_age=zeros.clone(),
         merge_stats=torch.zeros((b, N_MERGE_STATS), dtype=torch.int32,
                                 device=dev))
+    if fc is not None and fc.adversarial:
+        fields.update(
+            poisoned=torch.zeros((b, n), dtype=torch.bool, device=dev),
+            snap_poison=torch.zeros((b, n), dtype=torch.bool, device=dev))
     dc = lc.active_defense
     if dc is not None and dc.mode == "trimmed":
         fields.update(
@@ -195,19 +218,23 @@ def init_fields(lc: LearnConfig, task: LearnTask, b: int, n: int) -> dict:
 
 def fields_from_numpy(fields: dict, device=None) -> dict:
     """The learning carry (``B = 1``) from one ``repro`` run's fields as
-    numpy, keyed by the names in :data:`LEARN_FIELDS`."""
+    numpy, keyed by the names in :data:`LEARN_FIELDS` and
+    :data:`ATTACK_FIELDS`."""
     return {k: torch.from_numpy(np.array(v)[None]).to(device)
-            for k, v in fields.items() if k in LEARN_FIELDS}
+            for k, v in fields.items() if k in LEARN_FIELDS + ATTACK_FIELDS}
 
 
 def reset_replicas(drop, theta, theta_cnt, theta_age, theta0, *,
-                   peer_fill=None) -> dict:
+                   poisoned=None, peer_fill=None) -> dict:
     """Churn: the dropped nodes' replicas go back to the shared init, their
     counts and ages to zero (snapshots belong to the exchange and stay);
-    the recent-peer buffer, when carried, empties."""
+    the contamination flag and the recent-peer buffer, when carried, are
+    cleared: a fresh init is clean and has no peers."""
     out = dict(theta=torch.where(drop[..., None], theta0, theta),
                theta_cnt=torch.where(drop, 0.0, theta_cnt),
                theta_age=torch.where(drop, 0.0, theta_age))
+    if poisoned is not None:
+        out["poisoned"] = poisoned & ~drop
     if peer_fill is not None:
         out["peer_fill"] = torch.where(drop, 0, peer_fill)
     return out
@@ -215,17 +242,23 @@ def reset_replicas(drop, theta, theta_cnt, theta_age, theta0, *,
 
 def merge_deliveries(lc: LearnConfig, received, pidx, theta, theta_cnt,
                      theta_age, theta_snap, snap_cnt, snap_age, tau_l, *,
-                     merge_stats, peer_buf=None, peer_fill=None) -> dict:
+                     merge_stats, poisoned=None, snap_poison=None,
+                     peer_buf=None, peer_fill=None) -> dict:
     """Merge each receiver's replica with its sender's connection-time
     snapshot (``received`` ``(B, N)`` flags the receivers, ``pidx`` the
     senders). The screens run in ``repro``'s order: the non-finite guard,
     then with an active defense the count clip, the norm clip (fused into
     the kernel), the distance gate and, in trimmed mode, the median of the
-    recent accepted peers. Counts add (capped) and ages take the min.
-    Returns the updated fields."""
+    recent accepted peers. Counts add (capped) and ages take the min. With
+    the contamination carry (``poisoned``, ``snap_poison``) the counters
+    attribute attempts and distance rejections to poisoned payloads, and
+    an accepted poisoned payload poisons its receiver. Returns the updated
+    fields."""
     peer_theta = take_nodes(theta_snap, pidx)
     peer_cnt = take_nodes(snap_cnt, pidx)
     peer_age = take_nodes(snap_age, pidx)
+    peer_poison = (take_nodes(snap_poison, pidx) if snap_poison is not None
+                   else torch.zeros_like(received))
 
     finite = (torch.isfinite(peer_theta).all(-1) & torch.isfinite(peer_cnt)
               & torch.isfinite(peer_age))
@@ -238,7 +271,7 @@ def merge_deliveries(lc: LearnConfig, received, pidx, theta, theta_cnt,
     scale = None
     zero = torch.zeros(received.shape[:-1], dtype=torch.int32,
                        device=received.device)
-    norm_clipped = dist_rej = zero
+    norm_clipped = dist_rej = dist_rej_poison = zero
     if dc is not None:
         if dc.cnt_clip > 0.0:
             peer_cnt = clip_peer_counts(theta_cnt, peer_cnt, dc.cnt_clip)
@@ -249,6 +282,7 @@ def merge_deliveries(lc: LearnConfig, received, pidx, theta, theta_cnt,
             gated = peer_theta if scale is None else scale[..., None] * peer_theta
             near = distance_accept(theta, gated, dc.dist_gate, dc.dist_floor)
             dist_rej = count(accept & ~near)
+            dist_rej_poison = count(accept & ~near & peer_poison)
             accept = accept & near
 
     w_own, _ = merge_weights(lc.merge_policy, theta_cnt, peer_cnt, theta_age,
@@ -275,21 +309,75 @@ def merge_deliveries(lc: LearnConfig, received, pidx, theta, theta_cnt,
         accept, torch.clamp(theta_cnt + peer_cnt, max=CNT_CAP), theta_cnt)
     theta_age = torch.where(accept, torch.minimum(theta_age, peer_age),
                             theta_age)
-    # no adversaries without the faults slice: the poison counters stay 0
-    stats = torch.stack([count(received), zero, count(received & ~finite),
-                         norm_clipped, dist_rej, zero], -1)
+    stats = torch.stack([count(received), count(received & peer_poison),
+                         count(received & ~finite), norm_clipped, dist_rej,
+                         dist_rej_poison], -1)
     out.update(theta=theta, theta_cnt=theta_cnt, theta_age=theta_age,
                merge_stats=merge_stats + stats)
+    if poisoned is not None:
+        # contamination spreads through accepted poisoned payloads
+        out["poisoned"] = poisoned | (accept & peer_poison)
     return out
 
 
 def snapshot_params(newly, theta, theta_cnt, theta_age, theta_snap,
-                    snap_cnt, snap_age):
+                    snap_cnt, snap_age, *, poisoned=None, snap_poison=None):
     """Snapshot the parameters and their bookkeeping where a connection
-    forms: ``(theta_snap, snap_cnt, snap_age)``."""
-    return (torch.where(newly[..., None], theta, theta_snap),
-            torch.where(newly, theta_cnt, snap_cnt),
-            torch.where(newly, theta_age, snap_age))
+    forms: ``(theta_snap, snap_cnt, snap_age)``, and ``snap_poison`` after
+    them when the contamination flag is carried (a partner receives what
+    was as poisoned as the node at connection time)."""
+    out = (torch.where(newly[..., None], theta, theta_snap),
+           torch.where(newly, theta_cnt, snap_cnt),
+           torch.where(newly, theta_age, snap_age))
+    if snap_poison is None:
+        return out
+    return out + (torch.where(newly, poisoned, snap_poison),)
+
+
+def attack_tensors(adv: dict, device=None) -> dict:
+    """``faults.adv_vectors``' numpy vectors as tensors on ``device``, once
+    a run; an attack mode that no node takes is left out, and
+    :func:`poison_snapshots` skips it, as ``repro`` skips a mode whose
+    mask is all False."""
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in adv.items()
+            if k in ("is_adv", "scale") or np.asarray(v).any()}
+
+
+def poison_snapshots(adv: dict, task: LearnTask, slot_idx: int, newly,
+                     theta_snap, snap_cnt, snap_age, snap_poison):
+    """The serve-side attack: transform the snapshots the attackers just
+    took (``newly`` ``(B, N)``), leaving their live replicas and every
+    protocol trace alone. ``adv`` is :func:`attack_tensors` of
+    ``faults.adv_vectors``. ``signflip`` serves ``-scale * θ``; ``replay``
+    serves θ0; ``noise`` adds ``scale`` times a normal draw keyed on
+    ``fold_in(fold_in(stream_key, 0xBAD), slot)`` (the learning layer's own
+    chain, the same for every run of the batch); ``liar`` serves the honest
+    θ under the count ``scale`` and age 0. Every payload an attacker serves
+    is flagged poisoned. Returns ``(theta_snap, snap_cnt, snap_age,
+    snap_poison)``."""
+    hit = newly & adv["is_adv"]
+    scale = adv["scale"][:, None]
+    poisoned = theta_snap
+    if "signflip" in adv:
+        poisoned = torch.where(adv["signflip"][:, None], -scale * poisoned,
+                               poisoned)
+    if "replay" in adv:
+        poisoned = torch.where(adv["replay"][:, None], task.theta0, poisoned)
+    if "noise" in adv:
+        k_noise = jr.fold_in(jr.fold_in(task.stream_key, 0xBAD), slot_idx)
+        e = jr.erf_inv_draw(k_noise, theta_snap.shape[-2:])
+        # repro's `poisoned + scale * normal` under XLA: the constant scale
+        # folded into normal's sqrt(2), the product contracted into one FMA
+        poisoned = torch.where(adv["noise"][:, None],
+                               fma32(scale * jr.SQRT2, e, poisoned),
+                               poisoned)
+    theta_snap = torch.where(hit[..., None], poisoned, theta_snap)
+    if "liar" in adv:
+        liar_hit = hit & adv["liar"]
+        snap_cnt = torch.where(liar_hit, adv["scale"], snap_cnt)
+        snap_age = torch.where(liar_hit, 0.0, snap_age)
+    return theta_snap, snap_cnt, snap_age, snap_poison | hit
 
 
 def stream_batches(lc: LearnConfig, task: LearnTask, slots: torch.Tensor,
@@ -325,12 +413,16 @@ def train_completions(lc: LearnConfig, slot_idx: int, did_train, theta,
 
 
 def learn_outputs(lc: LearnConfig, task: LearnTask, theta, theta_cnt,
-                  has_model, in_rz, *, merge_stats) -> dict:
+                  has_model, in_rz, *, merge_stats, poisoned=None,
+                  cls1h=None) -> dict:
     """Per-sample telemetry ``(B,)``: ``test_acc`` (population mean test
     accuracy), ``test_acc_holders`` (mean over in-zone holders of the
     model, the population mean when there are none), ``learn_obs`` (mean
     count per holder), ``theta_var`` (mean parameter variance across
-    holders), and the cumulative ``merge_stats``."""
+    holders), and the cumulative ``merge_stats``. With the contamination
+    flag ``poisoned`` also ``poisoned_frac``, the poisoned fraction of the
+    in-zone holders (0 without holders), and ``poisoned_frac_c`` ``(B,
+    C)``, its split by the classes of ``cls1h`` ``(N, C)`` bool."""
     acc = tiny.tiny_accuracy(lc.spec, theta, task.x_test, task.y_test)
     w = (has_model[..., LEARN_MODEL] & in_rz).float()
     n_hold = w.sum(-1)
@@ -339,7 +431,7 @@ def learn_outputs(lc: LearnConfig, task: LearnTask, theta, theta_cnt,
     mu = (w[..., None] * theta).sum(-2) / denom[..., None]
     var = (w[..., None] * torch.square(theta - mu[..., None, :])).sum(-2) \
         / denom[..., None]
-    return dict(
+    out = dict(
         test_acc=mean32(acc),
         test_acc_holders=torch.where(any_hold, (w * acc).sum(-1) / denom,
                                      mean32(acc)),
@@ -347,3 +439,14 @@ def learn_outputs(lc: LearnConfig, task: LearnTask, theta, theta_cnt,
         theta_var=torch.where(any_hold, mean32(var), 0.0),
         merge_stats=merge_stats,
     )
+    if poisoned is not None:
+        # counts of 0/1 terms: exact in float32, in any order
+        p = poisoned.float()
+        out["poisoned_frac"] = torch.where(any_hold,
+                                           (w * p).sum(-1) / denom, 0.0)
+        in_cls = (w[..., None] * cls1h).float()                 # (B, N, C)
+        n_c = in_cls.sum(-2)
+        out["poisoned_frac_c"] = torch.where(
+            n_c > 0.0, (p[..., None] * in_cls).sum(-2) / n_c.clamp_min(1.0),
+            0.0)
+    return out

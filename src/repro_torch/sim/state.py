@@ -82,6 +82,9 @@ class SimState:
     snap_cnt: Any = None         # (B, N) count at connection
     snap_age: Any = None         # (B, N) age at connection
     merge_stats: Any = None      # (B, 6) int32 cumulative merge counters
+    # --- Byzantine carry (learning under an adversarial cfg.faults only) ---
+    poisoned: Any = None         # (B, N) bool replica contamination flag
+    snap_poison: Any = None      # (B, N) bool payload flag at connection
     peer_buf: Any = None         # (B, N, R, D) trimmed mode: recent peers
     peer_fill: Any = None        # (B, N) int32 trimmed mode: peers accepted
 
@@ -96,7 +99,8 @@ def init_sim_state(mob_state, zone0: torch.Tensor, *, M: int, cfg,
     ``zone0`` is the ``(B, N)`` int32 initial zone word; the state lives on
     its device. A ``cfg.learn`` adds the learning carry, from
     ``task`` (a ``repro_torch.sim.learn.LearnTask``; drawn from the config
-    when None). With the cells backend the close carry is the bounded
+    when None), with the contamination flags under an adversarial
+    ``cfg.faults``. With the cells backend the close carry is the bounded
     neighbour list, ``(B, N, nbr_cap)`` int32 filled with -1. An enabled
     ``cfg.faults`` adds the fault carry: every node on, on as many rows as
     ``mob_state`` has (one a seed), and no events."""
@@ -161,7 +165,7 @@ def _learn_fields(cfg, task, b: int, n: int, device) -> dict:
 
     if task is None:
         task = learn.make_task(cfg.learn, device)
-    return learn.init_fields(cfg.learn, task, b, n)
+    return learn.init_fields(cfg.learn, task, b, n, fc=cfg.faults)
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:

@@ -76,10 +76,12 @@ _LIGHT_KEYS = ("availability", "busy_frac", "stored", "model_holders",
 #: reduction as their final sample, like ``nbr_overflow``.
 _FAULT_KEYS = ("availability_c", "on_frac_c", "n_in_rz_c")
 
-#: Learning telemetry (enabled ``LearnConfig`` only), reduced like the
-#: light keys; the cumulative ``merge_stats`` ride every reduction as their
-#: final sample, like ``nbr_overflow``.
-_LEARN_KEYS = ("test_acc", "test_acc_holders", "learn_obs", "theta_var")
+#: Learning telemetry (enabled ``LearnConfig`` only; the last two, the
+#: Byzantine contamination, under an adversarial ``FaultConfig`` only),
+#: reduced like the light keys; the cumulative ``merge_stats`` ride every
+#: reduction as their final sample, like ``nbr_overflow``.
+_LEARN_KEYS = ("test_acc", "test_acc_holders", "learn_obs", "theta_var",
+               "poisoned_frac", "poisoned_frac_c")
 
 #: The optional reduced quantities, in ``repro``'s order.
 _EXTRA_KEYS = _FAULT_KEYS + _LEARN_KEYS
@@ -214,8 +216,11 @@ def _sample_shapes(cfg: SimConfig, M: int, trace: str) -> dict:
         out.update(availability_c=((M, c), f32), on_frac_c=((c,), f32),
                    n_in_rz_c=((c,), i32), fault_events=((3,), i32))
     if cfg.learn is not None:
-        out.update({k: ((), f32) for k in _LEARN_KEYS})
+        out.update({k: ((), f32) for k in _LEARN_KEYS[:4]})
         out["merge_stats"] = ((6,), i32)
+        if cfg.faults is not None and cfg.faults.adversarial:
+            out.update(poisoned_frac=((), f32),
+                       poisoned_frac_c=((cfg.faults.n_classes,), f32))
     return out
 
 

@@ -207,10 +207,13 @@ TWO_ZONES = ZoneSet(centers=((20.0, 20.0), (40.0, 40.0)), radii=(15.0, 15.0))
     # faults must be the port's own record: not an object, not repro's
     (dict(learn=logreg_task(), faults=object()), ValueError,
      "repro_torch.sim.faults.FaultConfig"),
+    # the Byzantine slice runs an adversarial configuration, but not
+    # across two zones
     (dict(learn=logreg_task(), faults=FaultConfig(classes=(
         FaultClass(frac=0.5),
-        FaultClass(frac=0.5, adv_mode="signflip", adv_scale=1.0)))),
-     NotImplementedError, "Byzantine slice"),
+        FaultClass(frac=0.5, adv_mode="signflip", adv_scale=1.0))),
+        zones=TWO_ZONES),
+     NotImplementedError, "multi-zone"),
     (dict(zones=TWO_ZONES), NotImplementedError, "multi-zone"),
 ], ids=["change0-cell-list", "change1-cell-list", "change2-rwp",
         "change3-speed_range", "change4-faults slice",

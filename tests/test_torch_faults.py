@@ -28,10 +28,14 @@
    delivering, ``drop_state`` clearing only the flagged nodes, the duty
    chain's words and stationary on-fraction.
 5. The class-structured fixed point and DDE equal ``repro``'s for
-   ``duty_mix(0.4)``, ``zipf_mix(4)`` and ``harsh()`` within
-   ``tests/test_torch_analytics.py``'s tolerances (rtol 1e-5; o(τ) atol
-   1e-5), delegate to the scalar solvers bit for bit, and order the Zipf
-   ranks.
+   ``duty_mix(0.4)``, ``zipf_mix(4)``, ``zipf_mix(5)`` and ``harsh()`` at
+   M = 1 within ``tests/test_torch_analytics.py``'s tolerances (rtol 1e-5;
+   o(τ) atol 1e-5; Zipf-5 at λ = 0.05 exactly), delegate to the scalar
+   solvers bit for bit, and order the Zipf ranks. At M = 3 and 4 both
+   packages' damped iterations wander on the float32 grid of Lemma 1's
+   busy probability (steps of ulp(K), shown in ``repro`` itself), so the
+   fixed point is held to a few such steps and the DDE to atol 1e-5 on
+   ``repro``'s own fixed point.
 
 ``repro``'s engine and sweep run with ``jax.lax.optimization_barrier`` in
 place of its ``shared_barrier`` (which fails under this JAX), patched
@@ -716,24 +720,77 @@ CLASS_FIELDS = ("a", "a_serve", "q", "q_bar", "fracs", "b", "S", "T_S",
                 "N_z", "alpha_z", "Lam_z", "r", "d_M", "d_I")
 
 
-@pytest.mark.parametrize("name,kw", [
-    ("duty_mix", dict(duty=0.4)), ("zipf_mix", dict(n_classes=4)),
-    ("harsh", {}), ("free_rider_mix", {})])
-def test_class_solvers_equal_repro(name, kw):
-    rp, p = r_paper_params(lam=0.2, M=1), paper_params(lam=0.2, M=1)
+#: Lemma 1's b = K - sqrt(K*K - 1) is a difference of two float32 values
+#: near K (about 37-41 here), so it moves in steps of ulp(K): 2.8e-4 of b
+#: at M = 3. The damped class iteration then has no exact fixed point at
+#: M > 1 and wanders between neighbouring steps in both packages, each step
+#: moving a class's availability by about (1 - a) ulp(K) / b relative. The
+#: M > 1 cases are held to this many such steps.
+QUANTUM_STEPS = 3
+#: (preset, kw, lam, M). The M = 1 cases keep their ids.
+CLASS_CASES = [
+    pytest.param("duty_mix", dict(duty=0.4), 0.2, 1, id="duty_mix-kw0"),
+    pytest.param("zipf_mix", dict(n_classes=4), 0.2, 1, id="zipf_mix-kw1"),
+    pytest.param("harsh", {}, 0.2, 1, id="harsh-kw2"),
+    pytest.param("free_rider_mix", {}, 0.2, 1, id="free_rider_mix-kw3"),
+    pytest.param("zipf_mix", dict(n_classes=5), 0.05, 1, id="zipf5-M1"),
+    pytest.param("zipf_mix", dict(n_classes=5), 0.05, 3, id="zipf5-M3"),
+    pytest.param("harsh", {}, 0.02, 3, id="harsh-M3"),
+    pytest.param("zipf_mix", dict(n_classes=5), 0.05, 4, id="zipf5-M4"),
+]
+#: Fields that are the configuration's own numbers, not the iteration's.
+CLASS_INPUTS = ("q", "q_bar", "fracs", "N_z", "alpha_z", "Lam_z")
+
+
+def _busy_step(b: float) -> float:
+    """One float32 step of Lemma 1's busy probability: ulp(K), with K =
+    (b + 1/b) / 2 recovered from ``b``."""
+    return float(np.spacing(np.float32((b + 1.0 / b) / 2.0)))
+
+
+def _carried_class_solution(rc):
+    """``repro``'s class solution as the port's record (float32 tensors)."""
+    return t_mf.ClassSolution(
+        **{f: torch.from_numpy(np.array(getattr(rc, f)))
+           for f in CLASS_FIELDS},
+        converged=torch.tensor(bool(rc.converged)),
+        residual=torch.tensor(float(rc.residual)))
+
+
+@pytest.mark.parametrize("name,kw,lam,M", CLASS_CASES)
+def test_class_solvers_equal_repro(name, kw, lam, M):
+    """At M = 1 every field within rtol 1e-5 and o(τ) within atol 1e-5;
+    Zipf-5 at λ = 0.05 is exact since ``gain`` is contracted as XLA does.
+    At M > 1 the fixed point is held to ``QUANTUM_STEPS`` steps of the busy
+    probability's float32 grid (``a`` to that many (1 - a) ulp(K) / b, the
+    derived fields to that many ulp(K) / b), and the DDE to atol 1e-5 on
+    ``repro``'s own fixed point, carried across."""
+    rp, p = r_paper_params(lam=lam, M=M), paper_params(lam=lam, M=M)
     r_fc, t_fc = getattr(rff, name)(**kw), getattr(tff, name)(**kw)
     rc = r_mf.solve_fixed_point_classes(rp, CM_R, faults=r_fc, strict=True)
     tc = t_mf.solve_fixed_point_classes(p, CM_T, faults=t_fc, strict=True)
+    b = float(np.asarray(rc.b)[0])
+    steps = QUANTUM_STEPS * _busy_step(b) / b
     for f in CLASS_FIELDS:
         want, got = np.asarray(getattr(rc, f)), getattr(tc, f).numpy()
         assert got.shape == want.shape and got.dtype == want.dtype, f
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-30,
-                                   err_msg=f)
+        if M == 1 or f in CLASS_INPUTS:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-30,
+                                       err_msg=f)
+        else:
+            rtol = steps * (1.0 - want) if f == "a" else steps
+            assert np.all(np.abs(got - want) <= rtol * np.abs(want)), (
+                f, got, want, rtol)
+    if (name, lam, M) == ("zipf_mix", 0.05, 1):
+        _same(tc.a, rc.a, "a")
     assert bool(tc.converged) and bool(rc.converged)
-    np.testing.assert_allclose(tc.a_mean.numpy(), np.asarray(rc.a_mean),
-                               rtol=1e-5)
+    a_mean = np.asarray(rc.a_mean)
+    np.testing.assert_allclose(
+        tc.a_mean.numpy(), a_mean,
+        rtol=1e-5 if M == 1 else float(np.max(steps * (1.0 - a_mean))))
     rd = r_dde.solve_observation_availability_classes(rp, rc, strict=True)
-    td = t_dde.solve_observation_availability_classes(p, tc, strict=True)
+    td = t_dde.solve_observation_availability_classes(
+        p, tc if M == 1 else _carried_class_solution(rc), strict=True)
     assert td.o.shape == rd.o.shape
     np.testing.assert_allclose(td.o.numpy(), np.asarray(rd.o), rtol=0,
                                atol=1e-5)
@@ -746,6 +803,29 @@ def test_class_solvers_equal_repro(name, kw):
     # the faults ride p.faults too
     via_p = t_mf.solve_fixed_point_classes(p.replace(faults=t_fc), CM_T)
     assert torch.equal(via_p.a, tc.a)
+
+
+def test_busy_probability_moves_in_quanta_of_ulp_k():
+    """The cause of the M > 1 departures, in ``repro`` itself: for
+    ``zipf_mix(5)`` at λ = 0.05, M = 3, every b its class solver returns
+    after 199-202 steps is a whole number of ulp(K), and ``repro``'s own
+    availabilities wander across those steps by more than the 1e-5 the
+    M = 1 cases hold."""
+    rp = r_paper_params(lam=0.05, M=3)
+    fc = rff.zipf_mix(n_classes=5)
+    bs, avail = [], []
+    for iters in (199, 200, 201, 202):
+        rc = r_mf.solve_fixed_point_classes(rp, CM_R, faults=fc, iters=iters)
+        b = float(np.asarray(rc.b)[0])
+        step = _busy_step(b)
+        assert 32.0 <= (b + 1.0 / b) / 2.0 < 64.0 and step == 2.0 ** -18
+        assert b / step == round(b / step), (iters, b, step)
+        bs.append(b)
+        avail.append(np.asarray(rc.a)[:, 0])
+    assert len(set(bs)) > 1                    # b crossed a step
+    avail = np.asarray(avail)
+    wander = np.ptp(avail, axis=0) / avail.min(axis=0)
+    assert wander.max() > 1e-5, wander
 
 
 def test_class_solvers_delegate_bitwise():
