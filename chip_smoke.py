@@ -193,17 +193,36 @@ Phases (any failure ends the run with a non-zero exit code):
     the defense. After the second process has ended, profiles of the
     attack path and of the same path with every class honest (kernels and
     device time a slot).
+29. contam-twin — the contamination twin against the attack figure's
+    sweeps (benchmarks/fig_adversarial.py, uncut: 48 nodes in a 100 m
+    square, RZ 50 m, 960 slots, logreg): ``signflip(0.1)`` undefended,
+    with ``robust_defense()`` (clipped) and with ``trimmed_defense()``,
+    each one B = 2 sweep (seeds 0, 1): the per-seed tail
+    ``poisoned_frac``, the seeds that ignited, the measured ``eta_adv``,
+    the twin's prediction (``solve_contamination_classes`` with the
+    measured merge rate, then ``solve_contamination_transient`` over the
+    tail window, holder-conditioned) on the card and on the CPU from the
+    same telemetry (within ``TWIN_RTOL``), its error and slots/s; the
+    undefended and trimmed rows must ignite and fall within 15%; the
+    clipped row's error is printed beside the reference's own (its twin
+    misses that arm). One ``gossip_merge_rows`` launch a slot in the
+    undefended and trimmed arms, one ``gossip_merge_rows_scaled`` in the
+    clipped one, each held to its plain version on the run's last merges.
+    Then the solvers on the card against the CPU's (x within
+    ``CONTAM_XTOL``, o within ``CONTAM_OTOL``): ``signflip(0.1)`` and
+    ``harsh_adversarial()`` at the learning point, eta_adv 0.5 with the
+    measured merge rate, and each case's transient, with wall times.
 
 Order: 1-4, 9, 13 and 25 (the kernel checks), the analytics of 7 and 27;
-then two processes on the card at once, both bound by the host's launch
+then three processes on the card at once, all bound by the host's launch
 rate: this one runs the long sweeps of 7 (mf-check) and 27 (faults-check),
 a second one (spawned, ``side_phases``) the phases that only check (the
 sweep phases, 5, 10, 6, 26, 11, 28, 14's replays, 18 and 22), with every
 replay's CPU run queued at its start in a worker process of its own
-(spawned, at most 4 threads). When the second process has ended, on a
-quiet card, this one times: the kernels on 7's and 27's last inputs and
-their profiles, then 8, 28's profiles, 12, 15, 16, 17, 19, 20, 21, 23 and
-24.
+(spawned, at most 4 threads), and a third one (spawned, ``contam_twin``)
+29. When the other two have ended, on a quiet card, this one times: the
+kernels on 7's and 27's last inputs and their profiles, then 8, 28's
+profiles, 12, 15, 16, 17, 19, 20, 21, 23 and 24.
 
 The run lengths above are cut to keep the script near half its 1200 s
 limit on a slow host (the simulator is bound by the host's launch rate):
@@ -242,16 +261,18 @@ from repro_torch.configs.fg_paper import (DENSITY,  # noqa: E402
                                           paper_contact_model,
                                           paper_params)
 from repro_torch.configs.fg_adversarial import (  # noqa: E402
-    harsh_adversarial, robust_defense)
+    harsh_adversarial, robust_defense, signflip, trimmed_defense)
 from repro_torch.configs.fg_faults import harsh, zipf_mix  # noqa: E402
 from repro_torch.configs.fg_learn import logreg_task, mlp_task  # noqa: E402
 from repro_torch.core import gossip  # noqa: E402
 from repro_torch.core.capacity import node_stored_information  # noqa: E402
 from repro_torch.core.dde import (  # noqa: E402
-    solve_observation_availability, solve_observation_availability_batch,
+    solve_contamination_transient, solve_observation_availability,
+    solve_observation_availability_batch,
     solve_observation_availability_classes)
 from repro_torch.core.meanfield import (  # noqa: E402
-    solve_fixed_point, solve_fixed_point_batch, solve_fixed_point_classes)
+    solve_contamination_classes, solve_fixed_point, solve_fixed_point_batch,
+    solve_fixed_point_classes)
 from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
 from repro_torch.kernels.build import BUILD_DIR  # noqa: E402
@@ -2120,6 +2141,273 @@ def faults_check(sol: dict):
     return finish
 
 
+# -------------------------------------------- the contamination twin
+
+#: ``benchmarks/fig_adversarial.py``'s learning-smoke geometry (``CFG_KW``):
+#: dense contacts in a small arena, where the epidemic needs its 240 s.
+ADV_CFG_KW = dict(n_nodes=48, area_side=100.0, rz_radius=50.0, n_slots=960,
+                  sample_every=8, k_obs=32)
+ADV_LAM, ADV_LAM_OBS = 0.05, 10.0
+ADV_TOL = 0.15       # twin vs measured poisoned fraction (``TOL``)
+ADV_TAIL = 20        # the tail window, in samples (``TAIL``)
+ADV_IGNITE = 0.1     # tail fraction above which a seed ignited (``IGNITE``)
+ADV_SEEDS = (0, 1)
+#: The figure's signflip(0.1) arms; the twin is gated on the undefended and
+#: trimmed ones. On the clipped arm the reference's own twin misses
+#: (ROADMAP, "Defects of the reference that the port copies").
+ADV_ARMS = {"undefended": None, "clipped": robust_defense(),
+            "trimmed": trimmed_defense()}
+ADV_GATED = ("undefended", "trimmed")
+#: The reference's clipped-arm error at seeds 0-1 (``python -m
+#: benchmarks.fig_adversarial --quick`` on the CPU).
+ADV_CLIPPED_REF = 0.458
+#: The contamination solvers on the card against the CPU on one class
+#: solution: rel on x, abs on the transient's o.
+CONTAM_XTOL, CONTAM_OTOL = 1e-5, 1e-6
+#: The twin's prediction on the card against the CPU's (rel).
+TWIN_RTOL = 1e-5
+
+
+def smoke_params():
+    """The mean-field twin of the learning-smoke geometry: the paper scenario
+    re-scaled to the 48-node arena at its own density (RZ = the inscribed
+    disc of radius ``area/2``, speed 1)."""
+    density = ADV_CFG_KW["n_nodes"] / ADV_CFG_KW["area_side"] ** 2
+    r_rz = ADV_CFG_KW["rz_radius"]
+    return paper_params(lam=ADV_LAM, Lam=ADV_LAM_OBS, M=1).replace(
+        N=density * math.pi * r_rz**2, alpha=2.0 * density * 1.0 * r_rz)
+
+
+def _measured_eta(ms: np.ndarray) -> float:
+    """Acceptance probability of poisoned payloads from the cumulative
+    merge-screen counters (a seed-summed (R, 6) slice)."""
+    attempts = float(ms[:, learning.MS_ATTEMPT_POISON].sum())
+    rejected = float(ms[:, learning.MS_DISTREJ_POISON].sum())
+    if attempts <= 0.0:
+        return 1.0
+    return max(0.0, 1.0 - rejected / attempts)
+
+
+def _twin_prediction(p, cm, fc, *, eta: float, t, attempts_cum,
+                     n_nodes: int) -> float:
+    """The contamination twin's prediction of the tail-window holder-masked
+    poisoned fraction from measured delivery telemetry, solved on ``cm``'s
+    device. ``attempts_cum`` is the seed-mean cumulative merge-attempt
+    counter sampled at times ``t``: its first delivery starts the twin's
+    clock, and the slope of its second half is the per-node delivery rate.
+    The transient runs from a clean start and is averaged, holder-
+    conditioned, over the tail window the simulator reports."""
+    att = np.asarray(attempts_cum, float)
+    t = np.asarray(t, float)
+    onset_i = int(np.argmax(att > 0.0))
+    t_onset = float(t[onset_i]) if att[-1] > 0.0 else 0.0
+    half = len(t) // 2
+    dt_meas = float(t[-1] - t[half])
+    m_meas = float(att[-1] - att[half]) / max(n_nodes * dt_meas, 1e-9)
+
+    contam = solve_contamination_classes(p, cm, fc, eta_adv=eta,
+                                         merge_rate=m_meas)
+    horizon = float(t[-1]) - t_onset
+    tr = solve_contamination_transient(contam, dt=0.5, t_max=horizon)
+    xh = contam.holder_fraction(tr.o).cpu().numpy()       # (C, K, nt)
+    f = contam.fracs.cpu().numpy()
+    xh_pop = np.einsum("c,ck...->k...", f, xh)[0]          # (nt,)
+    w0 = float(t[-ADV_TAIL]) - t_onset
+    sel = tr.tau.cpu().numpy() >= w0
+    return float(xh_pop[sel].mean())
+
+
+def attack_row(defense, device=None, seeds=ADV_SEEDS) -> dict:
+    """One ``signflip(0.1)`` row of benchmarks/fig_adversarial.py: a B =
+    len(seeds) sweep at ``ADV_CFG_KW`` under ``defense`` (None: undefended),
+    with the per-seed tail ``poisoned_frac`` and, over the seeds that
+    ignited, the measured fraction, ``eta_adv`` and the seed-mean
+    cumulative merge attempts the twin reads."""
+    p, fc = smoke_params(), signflip(frac=0.1)
+    cfg = SimConfig(learn=dataclasses.replace(logreg_task(), defense=defense),
+                    faults=fc, **ADV_CFG_KW)
+    t = time.perf_counter()
+    out = sweep.run([p], cfg, seeds, device=device)
+    wall = time.perf_counter() - t
+    pf_seed = np.asarray(out.poisoned_frac)[0, :, -ADV_TAIL:].mean(axis=1)
+    ign = pf_seed > ADV_IGNITE
+    ms = np.asarray(out.merge_stats)[0, :, -1]               # (R, 6)
+    row = dict(p=p, fc=fc, cfg=cfg, t=np.asarray(out.t), pf_seed=pf_seed,
+               ign=ign, wall=wall, poisoned=None, eta=None, attempts_cum=None)
+    if ign.any():
+        row.update(
+            poisoned=float(pf_seed[ign].mean()),
+            eta=_measured_eta(ms[ign]) if defense is not None else 1.0,
+            attempts_cum=np.asarray(out.merge_stats)[0, ign, :, 0].mean(0))
+    return row
+
+
+def row_twin(row: dict, cm) -> float:
+    """``_twin_prediction`` of an ignited ``attack_row`` on ``cm``."""
+    return _twin_prediction(row["p"], cm, row["fc"], eta=row["eta"],
+                            t=row["t"], attempts_cum=row["attempts_cum"],
+                            n_nodes=ADV_CFG_KW["n_nodes"])
+
+
+def contamination_case(p, fc, device, **kw) -> tuple:
+    """``solve_contamination_classes`` and its transient (dt 0.5) on
+    ``device`` (None: cuda), with the wall seconds of each. The balance
+    must converge and the trace be finite (the class solver under it need
+    not reach the balance's tol 1e-6: at the learning point it stops at
+    2e-6)."""
+    cm = paper_contact_model(device=device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cs = solve_contamination_classes(p, cm, fc, **kw)
+    if not bool(cs.converged):
+        raise AssertionError(f"contam-twin: residual {float(cs.residual)}")
+    torch.cuda.synchronize()
+    t_cs = time.perf_counter() - t
+    t = time.perf_counter()
+    tr = solve_contamination_transient(cs, dt=0.5, strict=True)
+    torch.cuda.synchronize()
+    return cs, tr, t_cs, time.perf_counter() - t
+
+
+def on_card(sol):
+    """A solution record with its tensors moved to the card."""
+    return dataclasses.replace(sol, **{
+        f.name: getattr(sol, f.name).cuda() for f in dataclasses.fields(sol)
+        if torch.is_tensor(getattr(sol, f.name))})
+
+
+def contam_diff(cs, tr, cpu_cs, cpu_tr, o_tol: float, what: str) -> tuple:
+    """``(x rel, o abs)`` card vs CPU; raises beyond ``CONTAM_XTOL`` and
+    ``o_tol``, or if a result left the card."""
+    if {cs.x.device.type, tr.o.device.type, cs.x_holders.device.type} \
+            != {"cuda"}:
+        raise AssertionError(f"contam-twin: {what}: a solver left the card")
+    x_err = float(((cs.x.cpu() - cpu_cs.x).abs() / cpu_cs.x.abs()).max())
+    o_err = float((tr.o.cpu() - cpu_tr.o).abs().max())
+    if x_err > CONTAM_XTOL or o_err > o_tol or tr.o.shape != cpu_tr.o.shape:
+        raise AssertionError(
+            f"contam-twin: {what} card vs cpu x rel {x_err}, o abs {o_err}, "
+            f"shapes {tuple(tr.o.shape)} {tuple(cpu_tr.o.shape)}")
+    return x_err, o_err
+
+
+def contamination_solvers(m_meas: float) -> str:
+    """The contamination solvers on the card against the CPU's. Cases:
+    signflip(0.1) and harsh_adversarial() at the learning point, and
+    signflip(0.1) at the smoke point with eta_adv 0.5 and the measured
+    merge rate ``m_meas``; each with its transient. On the CPU's class
+    solution, carried to the card: x within ``CONTAM_XTOL`` (rel), o within
+    ``CONTAM_OTOL`` (abs). End to end, on the card's own class solution
+    (which departs from the CPU's by float32 rounding, and the epidemic's
+    rise amplifies that in o): x within ``CONTAM_XTOL``, o within
+    ``DDE_ATOL``, as the class DDE is held in faults-check."""
+    lines = []
+    cm = paper_contact_model()
+    for label, p, fc, kw in (
+            ("signflip(0.1)", paper_params(**LEARN_PARAMS), signflip(frac=0.1),
+             {}),
+            ("harsh_adversarial()", paper_params(**LEARN_PARAMS),
+             harsh_adversarial(), {}),
+            (f"signflip(0.1) eta_adv 0.5 merge_rate {m_meas:.6g}",
+             smoke_params(), signflip(frac=0.1),
+             dict(eta_adv=0.5, merge_rate=m_meas))):
+        cs, tr, t_cs, t_tr = contamination_case(p, fc, None, **kw)
+        cpu_cs, cpu_tr, _, _ = contamination_case(p, fc, "cpu", **kw)
+        whole = contam_diff(cs, tr, cpu_cs, cpu_tr, DDE_ATOL,
+                            f"{label} end to end")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cc = solve_contamination_classes(p, cm, fc, csol=on_card(cpu_cs.csol),
+                                         **kw)
+        torch.cuda.synchronize()
+        t_cc = time.perf_counter() - t
+        ctr = solve_contamination_transient(cc, dt=0.5, strict=True)
+        same = contam_diff(cc, ctr, cpu_cs, cpu_tr, CONTAM_OTOL,
+                           f"{label} on the CPU's class solution")
+        lines.append(
+            f"{label}: x={[round(float(v), 6) for v in cs.x[:, 0]]} "
+            f"x_pop_holders={float(cs.x_pop_holders):.6f}, "
+            f"{tr.o.shape[-1]} samples; card vs cpu on the cpu's class "
+            f"solution x rel {same[0]:.3e}, o abs {same[1]:.3e}; end to end "
+            f"x rel {whole[0]:.3e}, o abs {whole[1]:.3e}; wall on the card: "
+            f"steady {t_cs:.3f}s with the class solver, {t_cc:.3f}s "
+            f"without, transient {t_tr:.3f}s")
+    return "; ".join(lines)
+
+
+def contam_twin(start: float) -> dict:
+    """The contamination twin on the card, in a process of its own
+    (spawned beside ``side_phases``; it checks and times nothing else):
+    benchmarks/fig_adversarial.py's signflip(0.1) rows uncut, each a B = 2
+    sweep (seeds 0, 1) at ``ADV_CFG_KW``, the twin predicted on the card and
+    on the CPU from the same telemetry, the undefended and trimmed rows
+    gated at ``ADV_TOL``; the row merges held to their plain versions on
+    each run's last merges; then the solvers on the card against the
+    CPU's. Returns the merges' launches and differences for the kernel
+    record."""
+    global _START
+    _START = start
+    torch.set_num_threads(2)
+    cm_gpu, cm_cpu = paper_contact_model(), paper_contact_model(device="cpu")
+    launches = dict(gossip_merge_rows=0, gossip_merge_rows_scaled=0)
+    worst, errs, m_meas = 0.0, {}, None
+    for arm, defense in ADV_ARMS.items():
+        name = "gossip_merge_rows" if arm != "clipped" else \
+            "gossip_merge_rows_scaled"
+        with Recorder(name) as rec:
+            reset_counts()
+            row = attack_row(defense)
+            launched = counts()
+        n_slots = slots_run(row["cfg"])
+        if launched != per_run(dict(DENSE_ONLY, **{name: 1}), n_slots):
+            raise AssertionError(f"contam-twin {arm} launches {launched}")
+        launches[name] += launched[name]
+        kern = getattr(gm, name)
+        rows, err = held_to_plain(rec, kern, getattr(gm, name + "_ref"))
+        worst = max(worst, err)
+        line = (f"{arm}: signflip(0.1) N={ADV_CFG_KW['n_nodes']} B="
+                f"{len(ADV_SEEDS)} {n_slots} slots, tail poisoned_frac per "
+                f"seed {[round(float(v), 6) for v in row['pf_seed']]}, ignited "
+                f"{int(row['ign'].sum())}/{len(ADV_SEEDS)}; slots/s="
+                f"{n_slots / row['wall']:.1f}; {name} launches {launched[name]}"
+                f", == plain on the last {len(rec.calls)} merges ({rows} rows,"
+                f" max_abs_err={err})")
+        if row["poisoned"] is None:
+            if arm in ADV_GATED:
+                raise AssertionError(f"contam-twin: no seed ignited; {line}")
+            phase("contam-twin", line)
+            continue
+        t = time.perf_counter()
+        x_gpu = row_twin(row, cm_gpu)
+        torch.cuda.synchronize()
+        t_twin = time.perf_counter() - t
+        x_cpu = row_twin(row, cm_cpu)
+        if abs(x_gpu - x_cpu) > TWIN_RTOL * abs(x_cpu):
+            raise AssertionError(
+                f"contam-twin: {arm} twin card {x_gpu} vs cpu {x_cpu}")
+        errs[arm] = abs(x_gpu - row["poisoned"]) / max(abs(row["poisoned"]),
+                                                       1e-12)
+        line += (f"; measured {row['poisoned']:.6f}, eta_adv "
+                 f"{row['eta']:.6f}; twin {x_gpu:.6f} (card, {t_twin:.3f}s) "
+                 f"/ {x_cpu:.6f} (cpu); rel err {errs[arm]:.4f}")
+        if arm in ADV_GATED:
+            if errs[arm] > ADV_TOL:
+                raise AssertionError(f"contam-twin: twin off; {line}")
+            line += f" <= {ADV_TOL}"
+        else:
+            line += (f" (not gated: the reference's own twin misses this arm, "
+                     f"{ADV_CLIPPED_REF} at seeds 0-1)")
+        phase("contam-twin", line)
+        if arm == "undefended":
+            att, tt = row["attempts_cum"], row["t"]
+            half = len(tt) // 2
+            m_meas = float(att[-1] - att[half]) / (
+                ADV_CFG_KW["n_nodes"] * float(tt[-1] - tt[half]))
+    phase("contam-twin", contamination_solvers(m_meas))
+    torch.cuda.synchronize()
+    return dict(launches=launches, max_abs_err=worst, errs=errs)
+
+
 # ------------------------------------------------------- the gossip round
 
 def leaf_bits(t: torch.Tensor) -> torch.Tensor:
@@ -3416,16 +3704,21 @@ def main() -> int:
     an, sol = mf_analytics(), zipf_solution()
     # the checking phases go to a second process on the card (spawned: this
     # one holds a CUDA context) while this one runs the two long sweeps
-    side = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
+    # and the contamination twin's sweeps to a third
+    spawn = multiprocessing.get_context("spawn")
+    side = concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn)
+    twin = concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn)
     try:
         job = side.submit(side_phases, _START)
+        twin_job = twin.submit(contam_twin, _START)
         finish_mf = mf_check(an)
         finish_zipf = faults_check(sol)
         faulted = job.result()
+        faulted["contam"] = twin_job.result()
     finally:
         side.shutdown(wait=True, cancel_futures=True)
-    # the side process has ended: the card is quiet for what is timed
+        twin.shutdown(wait=True, cancel_futures=True)
+    # the other processes have ended: the card is quiet for what is timed
     return main_phases(floor_ms, checks, finish_mf, finish_zipf, faulted)
 
 
@@ -3457,15 +3750,16 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
     mgen = mamba_generate(mamba_cfg, mamba_params)
     del mamba_params
 
-    attack = faulted["attack"]
+    attack, contam = faulted["attack"], faulted["contam"]
 
     def merge_record(name, run, line, attack_launches):
         return dict(
             name=name, route="cuda", source="src/repro_torch/csrc/gossip_merge.cu",
             replaces=f"src/repro/kernels/gossip_merge.py:{line}",
-            launches=run["launches"] + attack_launches,
+            launches=(run["launches"] + attack_launches
+                      + contam["launches"][name]),
             max_abs_err=max(merge_worst, run["max_abs_err"],
-                            attack["max_abs_err"]),
+                            attack["max_abs_err"], contam["max_abs_err"]),
             ms=run["ms"], plain_ms=run["plain_ms"], bound_ms=run["bound_ms"],
             bound_by=run["bound_by"], library_ms=run["library_ms"])
 

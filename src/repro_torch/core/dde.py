@@ -32,9 +32,16 @@ twin: one lane per fault class, with the class fixed point's corrected
 coefficients, integrated by the same batched scan (at a disabled fault
 configuration it delegates to the scalar solve).
 
+:func:`solve_contamination_transient` is the Byzantine layer's: the
+poisoned-replica fraction's Euler trace toward
+``core.meanfield.solve_contamination_classes``' steady state, one lane a
+class.
+
 Arithmetic: float32 on the device of the mean-field solution's tensors.
 The reference's jitted scan contracts products into fused multiply-adds,
-so the two agree to float32 rounding, not bit for bit.
+so the two agree to float32 rounding, not bit for bit; the contamination
+transient writes its four contractions as ``fma32`` and equals the
+reference bit for bit.
 """
 
 from __future__ import annotations
@@ -46,12 +53,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.meanfield import FGParams, MeanFieldSolution
-from repro_torch.numerics import row_sum32
+from repro_torch.core.meanfield import (FGParams, MeanFieldSolution,
+                                        _poison_intensity)
+from repro_torch.numerics import fma32, row_sum32
 
 __all__ = ["DDESolution", "solve_observation_availability",
            "solve_observation_availability_batch",
-           "solve_observation_availability_classes"]
+           "solve_observation_availability_classes",
+           "solve_contamination_transient"]
 
 
 def _check_finite_coeffs(**named) -> None:
@@ -370,4 +379,56 @@ def solve_observation_availability_classes(p: FGParams, csol, faults=None,
                       what="solve_observation_availability_classes")
     weights = csol.fracs * q / torch.clamp_min(csol.q_bar, 1e-12)
     return DDESolution(tau=tau, o=o, dt=dt, weights=weights,
+                       converged=converged, residual=residual)
+
+
+def solve_contamination_transient(contam, *, dt: float = 1.0,
+                                  t_max: float | None = None,
+                                  strict: bool = False) -> DDESolution:
+    """Transient of the Byzantine contamination compartment model, on the
+    device of ``contam`` (a ``core.meanfield.ContaminationSolution``).
+    Each (class ``c``, zone ``z``) lane integrates, from a clean start
+    ``x(0) = 0``,
+
+        dx_cz/dt = m_cz (1 - x_cz) [ p_adv_z eta_adv
+                     + eta_honest sum_h s_hz x_hz ] - reset_z x_cz,
+
+    the balance whose root ``solve_contamination_classes`` returns, so the
+    trace settles onto ``contam.x``. No delay enters (the poison flag moves
+    at merge time): a plain Euler scan, a few kernels a step, in a
+    ``DDESolution`` with ``o`` of shape (C, K, nt), ``weights = fracs``
+    (``weighted()`` gives the population trace) and the usual diagnostics.
+    With no adversarial class the trace is identically zero.
+
+    ``t_max`` defaults to eight relaxation times of the slowest lane (its
+    rate is at least ``m p_adv eta_adv + reset``)."""
+    m, reset, p_adv, honest_n = (
+        torch.as_tensor(v).float() for v in
+        (contam.m, contam.reset, contam.p_adv, contam.honest_n))
+    e_a, e_h = (torch.as_tensor(v).float()
+                for v in (contam.eta_adv, contam.eta_honest))
+    _check_finite_coeffs(m=m, reset=reset, p_adv=p_adv, honest_n=honest_n,
+                         eta=torch.stack([e_a, e_h]))
+
+    if t_max is None:
+        rate = float((m * (p_adv * e_a)[None, :] + reset[None, :]).min())
+        t_max = 8.0 / max(rate, 1e-6)
+    n_steps = min(max(int(round(float(t_max) / dt)), 1), 1_000_000)
+    tau = torch.arange(n_steps + 1, dtype=torch.float32,
+                       device=m.device) * dt
+
+    dt_t = torch.tensor(dt, dtype=torch.float32, device=m.device)
+    o = torch.zeros(m.shape + (n_steps + 1,), dtype=torch.float32,
+                    device=m.device)
+    x = o[..., 0]
+    for i in range(1, n_steps + 1):
+        poi = _poison_intensity(p_adv, e_a, e_h, honest_n, x)
+        # XLA contracts repro's `m*(1-x)*poi - reset*x` and `x + dt*dx`
+        dx = fma32(m * (1.0 - x), poi[None, :], -(reset[None, :] * x))
+        x = torch.clamp(fma32(dt_t, dx, x), 0.0, 1.0)
+        o[..., i] = x
+    converged, residual = _trace_diag(o, dt)
+    if strict:
+        _strict_trace(converged, what="solve_contamination_transient")
+    return DDESolution(tau=tau, o=o, dt=dt, weights=contam.fracs,
                        converged=converged, residual=residual)

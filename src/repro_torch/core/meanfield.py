@@ -27,9 +27,14 @@ in its own order, so the two agree to float32 rounding, not bit for bit.
 The fault layer's analytic twin, :func:`solve_fixed_point_classes`,
 solves the class-structured fixed point of a single Replication Zone (one
 lane per fault class; at a disabled fault configuration it delegates to
-:func:`solve_fixed_point`). The multi-zone and contamination solvers of
-the reference come with the slices that need them (ROADMAP queue 1, items
-4 and 5).
+:func:`solve_fixed_point`). The Byzantine layer's,
+:func:`solve_contamination_classes`, rides it: the steady poisoned-replica
+fraction per class (its transient is ``core.dde.
+solve_contamination_transient``). It computes what the reference's jitted
+loop does bit for bit on the same class solution: XLA fuses the poison
+intensity's ``eta_honest`` product and each class sum (``einsum``) into
+multiply-adds, written here as :func:`~repro_torch.numerics.fma32`. The
+multi-zone solvers come with their slice (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from repro_torch.numerics import fma32, row_sum32, sqrt32
 __all__ = ["FGParams", "MeanFieldSolution", "ClassSolution", "transfer_stats",
            "solve_fixed_point", "solve_fixed_point_batch",
            "solve_fixed_point_classes", "merge_arrival_rate",
-           "queueing_delays", "stability_lhs"]
+           "queueing_delays", "stability_lhs", "ContaminationSolution",
+           "contamination_closed_form", "solve_contamination_classes"]
 
 _EPS = 1e-12
 #: The parameter fields the solvers read, as float32 tensors.
@@ -512,3 +518,245 @@ def solve_fixed_point_classes(p: FGParams, contact: ContactModel,
         a=a, a_serve=a_serve, q=q_t, q_bar=f32(q_bar), fracs=f_t, b=b, S=S,
         T_S=T_S, N_z=N_z, alpha_z=alpha_z, Lam_z=Lam_z, r=r, d_M=d_M,
         d_I=d_I, converged=converged, residual=residual)
+
+
+@dataclasses.dataclass(frozen=True)
+class ContaminationSolution:
+    """Steady-state poisoned-replica compartment model (class × zone), the
+    Byzantine layer's analytic twin: ``x[c, z]`` is the steady fraction of
+    class-``c`` replicas in zone ``z`` carrying the poison flag (what the
+    simulator emits as ``poisoned_frac_c``). See
+    :func:`solve_contamination_classes` for the balance equation."""
+
+    x: torch.Tensor           # (C, K) steady poisoned-replica fraction
+    x_mean: torch.Tensor      # (K,) population (f_c-weighted) mean fraction
+    p_adv: torch.Tensor       # (K,) adversarial share of served payloads
+    m: torch.Tensor           # (C, K) per-node merge-delivery rate [1/s]
+    reset: torch.Tensor       # (K,) per-node replica reset rate [1/s]
+    eta_adv: torch.Tensor     # () acceptance prob. of adversarial payloads
+    eta_honest: torch.Tensor  # () acceptance prob. of contaminated honest
+                              #    payloads
+    honest_n: Any = None      # (C, K) honest classes' normalised source
+                              #    shares (zero rows for adversarial ones)
+    fracs: Any = None         # (C,) class population fractions
+    csol: ClassSolution = None
+    converged: Any = None
+    residual: Any = None
+
+    def _zone_weights(self) -> torch.Tensor:
+        N_z = self.csol.N_z
+        return N_z / torch.clamp_min(N_z.sum(), _EPS)
+
+    @property
+    def x_pop(self) -> torch.Tensor:
+        """() overall population poisoned fraction (classes weighted by
+        ``f_c``, zones by ``N_z``)."""
+        return (self.x_mean * self._zone_weights()).sum()
+
+    def holder_fraction(self, x) -> torch.Tensor:
+        """Map a poisoned fraction ``x`` to the *holder* population, what
+        the simulator's holder-masked ``poisoned_frac`` measures.
+
+        A holder has received at least one merge since its last reset;
+        with merges Poisson(``m``) and resets Poisson(``reset``) the
+        merges-since-reset count is geometric with ``P(K = 0) = reset /
+        (m + reset)``, and every zero-merge node is clean, so
+
+            x_holders = 1 - (P(clean) - P(K=0)) / (1 - P(K=0)),
+
+        with ``P(clean) = 1 - x``. ``x`` leads with the (C, K) axes;
+        trailing axes (a transient's time axis) broadcast."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.m.device)
+        p0 = self.reset[None, :] / torch.clamp_min(
+            self.m + self.reset[None, :], _EPS)
+        p0 = p0.reshape(p0.shape + (1,) * (x.dim() - 2))
+        clean = torch.clamp_min((1.0 - x) - p0, 0.0)
+        return 1.0 - clean / torch.clamp_min(1.0 - p0, _EPS)
+
+    @property
+    def x_holders(self) -> torch.Tensor:
+        """(C, K) steady poisoned fraction among holders."""
+        return self.holder_fraction(self.x)
+
+    @property
+    def x_pop_holders(self) -> torch.Tensor:
+        """() overall holder-population poisoned fraction: compare with the
+        simulator's ``poisoned_frac``."""
+        f = self.fracs if self.fracs is not None else self.csol.fracs
+        return (_class_sum(f, self.x_holders) * self._zone_weights()).sum()
+
+
+def _class_sum(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``einsum("c,ck...->k...", f, x)`` as XLA computes it on the CPU: the
+    first class's product, then one fused multiply-add a class, in class
+    order. ``f`` is (C,) or of ``x``'s shape."""
+    f = f.reshape(f.shape + (1,) * (x.dim() - f.dim()))
+    acc = f[0] * x[0]
+    for c in range(1, x.shape[0]):
+        acc = fma32(f[c], x[c], acc)
+    return acc
+
+
+#: ``contamination_closed_form``'s ``A > 1e-9`` at float32.
+_A_MIN = float(np.float32(1e-9))
+
+
+def contamination_closed_form(m, p_adv, reset, *, eta_adv=1.0,
+                              eta_honest=1.0) -> torch.Tensor:
+    """Closed-form single-honest-source contamination fixed point.
+
+    With one honest class (payloads: a fraction ``p_adv`` adversarial,
+    ``1 - p_adv`` honest) the balance of :func:`solve_contamination_classes`
+    collapses to the quadratic
+
+        A x^2 + (B + reset - A) x - B = 0,
+        A = m (1 - p_adv) eta_honest,  B = m p_adv eta_adv,
+
+    whose root in [0, 1] this returns (the ``A -> 0`` limit is ``x = B /
+    (B + reset)``), in float32 on ``m``'s device (the CPU for a number)."""
+    m = torch.as_tensor(m, dtype=torch.float32)
+    A = m * (1.0 - p_adv) * eta_honest
+    B = m * p_adv * eta_adv
+    c = B + reset - A
+    x_quad = (-c + sqrt32(c * c + 4.0 * A * B)) / torch.clamp_min(
+        2.0 * A, _EPS)
+    x_lin = B / torch.clamp_min(B + reset, _EPS)
+    # the reference's weakly typed threshold compares as float32
+    return torch.clamp(torch.where(A > _A_MIN, x_quad, x_lin), 0.0, 1.0)
+
+
+def _contamination_system(fc, csol: ClassSolution):
+    """``(f, m, reset, p_adv, honest_n)``, the coefficients of the
+    contamination balance (the transient reads them off the solution):
+
+    * ``f`` (C,) class population fractions;
+    * ``m`` (C, K) per-node merge-delivery rate ``q_c r_z``;
+    * ``reset`` (K,) per-node replica reset rate ``alpha_z/N_z + crash``;
+    * ``p_adv`` (K,) adversarial share of the served-payload source mix
+      ``s_kz ∝ f_k q_k (1 - fr_k) a_kz``;
+    * ``honest_n`` (C, K) the honest classes' normalised source shares
+      (zero rows for adversarial classes).
+
+    The class count comes from ``fc``: at an attack-only configuration the
+    class solver delegated, and ``csol`` carries one class column, which
+    broadcasts over the classes (every class shares its availability)."""
+    dev = csol.a.device
+    fracs, q, serves = _class_vectors(fc)
+    adv = np.asarray([c.adv_mode != "none" for c in fc.classes], np.float64)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    f_t, q_t, adv_t = f32(fracs), f32(q), f32(adv)
+    K = csol.a.shape[-1]
+    s = (f_t * q_t * f32(serves))[:, None] * csol.a               # (C, K)
+    s_tot = torch.clamp_min(s.sum(0), _EPS)                       # (K,)
+    s_n = s / s_tot[None, :]
+    p_adv = _class_sum(adv_t, s_n)                                # (K,)
+    m = (q_t[:, None] * csol.r[None, :]).expand(len(fracs), K)    # (C, K)
+    reset = csol.alpha_z / torch.clamp_min(csol.N_z, _EPS) \
+        + float(fc.crash_rate)                                    # (K,)
+    honest_n = s_n * (1.0 - adv_t)[:, None]                       # (C, K)
+    return f_t, m.contiguous(), reset, p_adv, honest_n
+
+
+def _poison_intensity(p_adv, e_a, e_h, honest_n, x,
+                      fused: bool = True) -> torch.Tensor:
+    """(K,) ``p_adv eta_adv + eta_honest sum_h s_hz x_hz``: the accepted
+    poisoned share of the payloads a node merges. Jitted, XLA contracts the
+    add with ``eta_honest``'s product; ``fused=False`` is the reference's
+    eager evaluation, op by op."""
+    if not fused:
+        return p_adv * e_a + e_h * _class_sum(honest_n, x)
+    return fma32(e_h, _class_sum(honest_n, x), p_adv * e_a)
+
+
+def solve_contamination_classes(p: FGParams, contact: ContactModel,
+                                faults=None, zones: ZoneSet | None = None, *,
+                                eta_adv: float = 1.0, eta_honest: float = 1.0,
+                                merge_rate=None,
+                                csol: ClassSolution | None = None,
+                                iters: int = 200, tol: float = 1e-6,
+                                strict: bool = False
+                                ) -> ContaminationSolution:
+    """(class × zone) compartment model of the poisoned-replica fraction, on
+    the device of the class solution (``faults`` defaults to ``p.faults``).
+
+    Rides the class-structured operating point
+    (:func:`solve_fixed_point_classes`; pass ``csol`` to reuse one): per
+    class ``c`` and zone ``z`` the poison flag spreads through accepted
+    merges and is cleared by replica resets,
+
+        dx_cz/dt = m_cz (1 - x_cz) [ p_adv_z eta_adv
+                     + sum_h s_hz x_hz eta_honest ] - reset_z x_cz
+
+    with ``m_cz = q_c r_z`` the class solution's Lemma 2 merge-delivery
+    rate derated by the receiver's duty (``merge_rate``, a scalar or (C,
+    K), overrides it with a measured rate); the payload source mix ``s_kz ∝
+    f_k q_k (1 - fr_k) a_kz``, of which ``p_adv_z`` is the adversarial
+    classes' share; the defense screens' pass rates ``eta_adv`` and
+    ``eta_honest``; and ``reset_z = alpha_z / N_z + crash_rate`` (zone
+    churn and crash-restart reset a replica and its flag).
+
+    Solved by the class solver's damped fixed-point iteration (each step
+    maps ``x`` to ``m poi / (m poi + reset)``). With no adversarial class
+    the answer is exactly zero, returned without iterating. A ``ZoneSet``
+    (``zones`` or ``p.zones``) raises ``NotImplementedError``: the
+    multi-zone slice ports it."""
+    fc = faults if faults is not None else getattr(p, "faults", None)
+    if zones is not None or p.zones is not None:
+        raise NotImplementedError(
+            "repro_torch's solve_contamination_classes solves a single "
+            "Replication Zone; ZoneSets come with the multi-zone slice "
+            "(ROADMAP queue 1, item 5)")
+    if csol is None:
+        csol = solve_fixed_point_classes(p, contact, fc, iters=iters,
+                                         tol=tol, strict=strict)
+    dev = csol.a.device
+    C, K = csol.a.shape
+
+    def rate(shape):
+        return torch.broadcast_to(torch.as_tensor(
+            merge_rate, dtype=torch.float32, device=dev), shape).contiguous()
+
+    e_a = torch.tensor(float(eta_adv), dtype=torch.float32, device=dev)
+    e_h = torch.tensor(float(eta_honest), dtype=torch.float32, device=dev)
+    if fc is None or not fc.adversarial:
+        # no poison source: x = 0 is the exact fixed point
+        zero_ck = torch.zeros((C, K), dtype=torch.float32, device=dev)
+        crash = float(fc.crash_rate) if fc is not None and fc.enabled else 0.0
+        return ContaminationSolution(
+            x=zero_ck, x_mean=torch.zeros((K,), device=dev),
+            p_adv=torch.zeros((K,), device=dev),
+            m=(rate((C, K)) if merge_rate is not None
+               else csol.q[:, None] * csol.r[None, :]),
+            reset=csol.alpha_z / torch.clamp_min(csol.N_z, _EPS) + crash,
+            eta_adv=e_a, eta_honest=e_h, honest_n=zero_ck, fracs=csol.fracs,
+            csol=csol, converged=torch.tensor(True, device=dev),
+            residual=torch.zeros((), device=dev))
+
+    f_t, m, reset, p_adv, honest_n = _contamination_system(fc, csol)
+    C, K = honest_n.shape
+    if merge_rate is not None:
+        m = rate((C, K))
+
+    def body(x, fused=True):
+        poi = _poison_intensity(p_adv, e_a, e_h, honest_n, x, fused)
+        lam_x = m * poi[None, :]
+        x_new = lam_x / torch.clamp_min(lam_x + reset[None, :], _EPS)
+        return 0.5 * x + 0.5 * torch.clamp(x_new, 0.0, 1.0)
+
+    x = torch.full((C, K), 0.5, dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        x = body(x)
+    # the reference takes its residual step eagerly, outside the loop
+    residual = torch.abs(body(x, fused=False) - x).max()
+    converged = residual <= tol
+    if strict:
+        _strict_check(converged, residual,
+                      what="solve_contamination_classes", iters=iters,
+                      tol=tol)
+    return ContaminationSolution(
+        x=x, x_mean=_class_sum(f_t, x), p_adv=p_adv, m=m, reset=reset,
+        eta_adv=e_a, eta_honest=e_h, honest_n=honest_n, fracs=f_t,
+        csol=csol, converged=converged, residual=residual)

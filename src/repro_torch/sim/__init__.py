@@ -4,7 +4,9 @@ fault layer (``faults``, ``SimConfig.faults``), Gossip Learning
 (``learn``, ``SimConfig.learn``) and the Byzantine attacks on it (the
 adversarial classes of ``SimConfig.faults``, presets in
 ``repro_torch.configs.fg_adversarial``, reporting ``poisoned_frac``), in
-single runs and sweeps. The contamination mean field comes next."""
+single runs and sweeps. The contamination flag's analytic twin is
+``repro_torch.core.meanfield.solve_contamination_classes`` with
+``core.dde.solve_contamination_transient``."""
 
 from repro_torch.sim import faults, sweep
 from repro_torch.sim.engine import (BatchSimOutputs, SimConfig, SimOutputs,

@@ -55,8 +55,9 @@ poisoned payloads in the merge, is snapshotted with the parameters, and
 the attackers' fresh snapshots are poisoned
 (``learn.poison_snapshots``, drawing from the learning layer's own key
 chain). ``poisoned_frac`` and ``poisoned_frac_c`` come back with every
-sample. The contamination mean field and its transient come with the
-next slice.
+sample; their analytic twin is ``core.meanfield.
+solve_contamination_classes`` with ``core.dde.
+solve_contamination_transient``.
 
 The port runs the paper's validation loop: ``rdm`` (or ``replay``)
 mobility at constant speed, a single static zone, any ``M``, with or

@@ -35,8 +35,9 @@ as they are. The defenses (``LearnConfig.defense``) screen the peer inside
 snapshot ``snap_poison`` rides with the parameters), the poison-attributed
 ``merge_stats`` counters count the attempts and rejections of poisoned
 payloads, and :func:`learn_outputs` reports ``poisoned_frac`` and its
-per-class split. The contamination solvers, the analytic twin of that
-flag, come with the next slice.
+per-class split. The analytic twin of that flag is
+``core.meanfield.solve_contamination_classes`` (steady) with
+``core.dde.solve_contamination_transient``.
 """
 
 from __future__ import annotations
