@@ -11,7 +11,9 @@ Phases (any failure ends the run with a non-zero exit code):
    as the kernels are, printed as ``launch_floor_us`` here and on the
    merge-kernel line); then ``pairwise_contacts`` vs its plain version on
    the card, bit for bit on every output, over N x prev-density cases,
-   multi-bit zone words, a dense node cluster, N = 1024, 1025 and 2048
+   multi-bit zone words (and words over all 32 bits, bit 31 the int32
+   sign bit, at N = 130, 200 and 1025 and B = 16), a dense node cluster,
+   N = 1024, 1025 and 2048
    (lanes holding one word or two), B = 16, lattice positions (equal d²
    across lanes and words), ``prevw`` with every bit set but a few, and N =
    5000 and 16500 (5 and 17 segments of 1024 columns, each loading the
@@ -66,7 +68,8 @@ Phases (any failure ends the run with a non-zero exit code):
    cells of a grid row) vs its plain version, bit for bit, over cap in
    {1, 4, 9, 32, 40} x ncx in {1, 3, 17, 319} x B in {1, 2} (strips of 32
    and, at cap 40, of 16; ragged last strips), empty and full cells,
-   multi-bit zone words, pairs an ulp either side of r_tx; and
+   multi-bit zone words (three more cases with words over all 32 bits),
+   pairs an ulp either side of r_tx; and
    ``neighbor_lists`` at B = 2 on the card equal to each item's CPU run;
 10. cells-replay — N = 1024 at the paper's density on the cells backend
     (500 slots, of which whole samples of 16 run: 496): the CPU run, then
@@ -212,17 +215,38 @@ Phases (any failure ends the run with a non-zero exit code):
     ``CONTAM_XTOL``, o within ``CONTAM_OTOL``): ``signflip(0.1)`` and
     ``harsh_adversarial()`` at the learning point, eta_adv 0.5 with the
     measured merge rate, and each case's transient, with wall times.
+30. zones-replay — several Replication Zones on the card replaying the
+    CPU's positions, every trace bit for bit, the per-zone ones included,
+    and the path's kernel held to its plain version on the run's last
+    inputs: (a) three zones (two overlapping, a small disjoint one
+    drifting and reflected off the walls), dense N = 200, 304 slots; (b)
+    that layout scaled to the area on the cells backend, N = 1024, 160
+    slots; (c) 32 zones on a grid, dense, 160 slots, nodes in zone 31
+    alone (zone word -2**31); (d) ``harsh()`` with logreg learning across
+    two zones, 160 slots, every row merge held to its plain version; (e) a
+    B = 4 three-zone sweep (160 slots) whose rows (0, 0) and (1, 1) equal
+    B = 1 card runs. After the second process has ended, profiles of (a)
+    and of the paper point (kernels and device time a slot).
+31. zones-check — benchmarks/fig_multizone.py's Monte-Carlo check in its
+    quick form, uncut: two overlapping zones of 60 m at the paper point,
+    one B = 2 sweep (seeds 0, 1) of 4000 slots, ``reduce="mean"`` over
+    the second half, each zone's availability within 15% of
+    ``solve_fixed_point_multizone`` on the card and ``a_mf >= a_sim -
+    0.05`` (tests/test_sim_zones.py:392-395), slots/s, the contact kernel
+    held to its plain version on the sweep's last inputs; then the
+    multizone fixed point and DDE on the card against the CPU's (within
+    ``ZONE_RTOL`` and ``DDE_ATOL``), with wall times.
 
 Order: 1-4, 9, 13 and 25 (the kernel checks), the analytics of 7 and 27;
 then three processes on the card at once, all bound by the host's launch
 rate: this one runs the long sweeps of 7 (mf-check) and 27 (faults-check),
 a second one (spawned, ``side_phases``) the phases that only check (the
-sweep phases, 5, 10, 6, 26, 11, 28, 14's replays, 18 and 22), with every
-replay's CPU run queued at its start in a worker process of its own
-(spawned, at most 4 threads), and a third one (spawned, ``contam_twin``)
-29. When the other two have ended, on a quiet card, this one times: the
-kernels on 7's and 27's last inputs and their profiles, then 8, 28's
-profiles, 12, 15, 16, 17, 19, 20, 21, 23 and 24.
+sweep phases, 5, 10, 6, 26, 11, 28, 30, 14's replays, 18 and 22), with
+every replay's CPU run queued at its start in a worker process of its own
+(spawned, at most 4 threads), and a third one (spawned, ``twin_phases``)
+29 and 31. When the other two have ended, on a quiet card, this one
+times: the kernels on 7's and 27's last inputs and their profiles, then
+8, 28's and 30's profiles, 12, 15, 16, 17, 19, 20, 21, 23 and 24.
 
 The run lengths above are cut to keep the script near half its 1200 s
 limit on a slow host (the simulator is bound by the host's launch rate):
@@ -258,6 +282,7 @@ from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs import get_arch_config  # noqa: E402
 from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.configs.fg_paper import (DENSITY,  # noqa: E402
+                                          SPEED_DEFAULT,
                                           paper_contact_model,
                                           paper_params)
 from repro_torch.configs.fg_adversarial import (  # noqa: E402
@@ -269,10 +294,11 @@ from repro_torch.core.capacity import node_stored_information  # noqa: E402
 from repro_torch.core.dde import (  # noqa: E402
     solve_contamination_transient, solve_observation_availability,
     solve_observation_availability_batch,
-    solve_observation_availability_classes)
+    solve_observation_availability_classes,
+    solve_observation_availability_multizone)
 from repro_torch.core.meanfield import (  # noqa: E402
     solve_contamination_classes, solve_fixed_point, solve_fixed_point_batch,
-    solve_fixed_point_classes)
+    solve_fixed_point_classes, solve_fixed_point_multizone)
 from repro_torch.core.merge import DefenseConfig  # noqa: E402
 from repro_torch.kernels import contacts as kc  # noqa: E402
 from repro_torch.kernels.build import BUILD_DIR  # noqa: E402
@@ -294,9 +320,9 @@ from repro_torch.sim import contacts as sim_contacts  # noqa: E402
 from repro_torch.sim import sweep  # noqa: E402
 from repro_torch.sim import learn as learning  # noqa: E402
 from repro_torch.sim.compute import pack_mask  # noqa: E402
-from repro_torch.sim.engine import (SimConfig, _zone_member,  # noqa: E402
-                                    effective_zones, mobility_track,
-                                    simulate)
+from repro_torch.core.zones import ZoneSet  # noqa: E402
+from repro_torch.sim.engine import (SimConfig, effective_zones,  # noqa: E402
+                                    mobility_track, simulate, zone_member)
 from repro_torch.sim.mobility import get_mobility  # noqa: E402
 from repro_torch.tree import tree_items, tree_map  # noqa: E402
 
@@ -503,6 +529,20 @@ def launch_floor_ms() -> float:
     return device_ms(lambda: one.fill_(0.0))
 
 
+def zone_draw(rng, shape, zone_bits: int) -> torch.Tensor:
+    """Int32 zone words with up to ``zone_bits`` bits. At 32 bits each word
+    holds one or two of the top four zones (bits 28-31), so that the gate
+    keeps few pairs and a quarter of the words or more set bit 31, the
+    int32 sign bit (words drawn as int64, then cut to int32)."""
+    if zone_bits < 32:
+        return torch.tensor(rng.integers(0, 1 << zone_bits, shape),
+                            dtype=torch.int32)
+    one = np.left_shift(1, rng.integers(28, 32, shape))
+    two = np.where(rng.random(shape) < 0.3,
+                   np.left_shift(1, rng.integers(28, 32, shape)), 0)
+    return torch.tensor(one | two, dtype=torch.int64).to(torch.int32)
+
+
 def random_case(rng, b: int, n: int, density: float, side: float,
                 zone_bits: int, lattice: bool = False,
                 full_prev: bool = False, r_tx2: float = 25.0):
@@ -520,8 +560,7 @@ def random_case(rng, b: int, n: int, density: float, side: float,
     else:
         x = torch.tensor(rng.uniform(0, side, (b, n)), dtype=torch.float32)
         y = torch.tensor(rng.uniform(0, side, (b, n)), dtype=torch.float32)
-        zw = torch.tensor(rng.integers(0, 1 << zone_bits, (b, n)),
-                          dtype=torch.int32)
+        zw = zone_draw(rng, (b, n), zone_bits)
     elig = torch.tensor(rng.random((b, n)) < 0.7)
     args = [t.cuda() for t in (x, y, zw, elig)]
     gen = torch.Generator("cuda").manual_seed(n)
@@ -555,6 +594,11 @@ def check_kernel_cases(floor_ms: float) -> int:
              for d in (0.0, 0.3, 1.0)]
     cases += [dict(n=200, density=0.2, zone_bits=5),
               dict(n=130, side=4.0), dict(n=130, side=4.0, zone_bits=3)]
+    # words over all 32 bits: bit 31 is the int32 sign bit
+    cases += [dict(n=200, density=0.2, zone_bits=32),
+              dict(n=130, side=4.0, zone_bits=32),
+              dict(n=1025, density=0.1, side=40.0, zone_bits=32),
+              dict(n=200, b=16, density=0.2, side=20.0, zone_bits=32)]
     cases += [dict(n=n, density=d) for n in (1024, 1025, 2048)
               for d in (0.0, 0.3)]
     cases += [dict(n=200, density=0.2, b=16), dict(n=200, b=16, lattice=True,
@@ -577,7 +621,8 @@ def check_kernel_cases(floor_ms: float) -> int:
                 raise AssertionError(f"kernel != plain on {name} at {case}")
         worst = max(worst, max_abs_err(got, want))
     phase("kernel", f"{len(cases)} cases bit for bit (N up to 16500 in two "
-                    f"chunks, B=1, 2 and 16, multi-bit zone words, clustered "
+                    f"chunks, B=1, 2 and 16, multi-bit zone words and 4 cases"
+                    f" of words with bit 31 set, clustered "
                     f"nodes, N=1024/1025/2048, lattice ties, full prevw); "
                     f"max_abs_err={worst} launch_floor_us={1e3 * floor_ms:.3f}")
     return worst
@@ -594,7 +639,7 @@ def main_path_inputs(cfg: SimConfig, seed: int):
     r_tx2 = float(np.float32(cfg.r_tx ** 2))
 
     def sweep_args(pos):
-        zw = pack_mask(_zone_member(pos, zs))[..., 0]
+        zw = pack_mask(zone_member(pos, zs))[..., 0]
         return (pos[..., 0].contiguous(), pos[..., 1].contiguous(), zw,
                 zw != 0)
 
@@ -1610,12 +1655,13 @@ def cell_case(rng, b: int, ncx: int, cap: int, zone_bits: int,
         y[..., 1] = np.where(ring, y[..., 0] + (r * np.sin(th)).astype(np.float32),
                              y[..., 1])
     ids = np.cumsum(full.reshape(b, -1), axis=1).reshape(full.shape) - 1
-    zone = rng.integers(0, 1 << zone_bits, (b, n_pad, cap))
+    zone = zone_draw(rng, (b, n_pad, cap), zone_bits)
     planes = (np.where(full, x, np.float32(1e9)).astype(np.float32),
               np.where(full, y, np.float32(1e9)).astype(np.float32),
-              np.where(full, zone, 0).astype(np.int32),
               np.where(full, ids, -1).astype(np.int32))
-    return [torch.from_numpy(a).cuda() for a in planes]
+    xc, yc, idc = (torch.from_numpy(a).cuda() for a in planes)
+    zc = torch.where(torch.from_numpy(full), zone, 0).cuda()
+    return [xc, yc, zc, idc]
 
 
 def check_cell_cases() -> int:
@@ -1624,25 +1670,27 @@ def check_cell_cases() -> int:
     rng = np.random.default_rng(14)
     r_tx2 = 25.0
     worst, count = 0, 0
-    for cap in (1, 4, 9, 32, 40):
-        for ncx in (1, 3, 17, 319):
-            for b in (1, 2):
-                if b * ncx * ncx * 9 * cap * cap > 2e8:
-                    continue
-                args = cell_case(rng, b, ncx, cap, 1 + count % 5)
-                got = kc.cell_close_words(*args, ncx, ncx, r_tx2)
-                want = kc.cell_close_words_ref(*args, ncx, ncx, r_tx2)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"cell kernel != plain at cap={cap} ncx={ncx} B={b}")
-                worst = max(worst, max_abs_err([got], [want]))
-                count += 1
-                del got, want, args
+    # the last three: words over all 32 bits (bit 31 the int32 sign bit)
+    grid = [(cap, ncx, b, 1 + i % 5) for i, (cap, ncx, b) in enumerate(
+        (cap, ncx, b) for cap in (1, 4, 9, 32, 40) for ncx in (1, 3, 17, 319)
+        for b in (1, 2) if b * ncx * ncx * 9 * cap * cap <= 2e8)]
+    grid += [(4, 17, 2, 32), (9, 319, 1, 32), (32, 3, 2, 32)]
+    for cap, ncx, b, bits in grid:
+        args = cell_case(rng, b, ncx, cap, bits)
+        got = kc.cell_close_words(*args, ncx, ncx, r_tx2)
+        want = kc.cell_close_words_ref(*args, ncx, ncx, r_tx2)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"cell kernel != plain at cap={cap} "
+                                 f"ncx={ncx} B={b} zone bits {bits}")
+        worst = max(worst, max_abs_err([got], [want]))
+        count += 1
+        del got, want, args
     torch.cuda.empty_cache()
     lists = check_batched_lists()
     phase("cell-kernel", f"{count} cases bit for bit (cap 1-40, ncx 1-319, "
-                         f"B 1-2, empty and full cells, multi-bit zone words, "
+                         f"B 1-2, empty and full cells, multi-bit zone words "
+                         f"and 3 cases of words with bit 31 set, "
                          f"pairs an ulp either side of r_tx); "
                          f"max_abs_err={worst}; {lists}")
     return worst
@@ -2406,6 +2454,249 @@ def contam_twin(start: float) -> dict:
     phase("contam-twin", contamination_solvers(m_meas))
     torch.cuda.synchronize()
     return dict(launches=launches, max_abs_err=worst, errs=errs)
+
+
+# ----------------------------------------------------------------- zones
+
+def three_zones(side: float = 200.0) -> ZoneSet:
+    """Three Replication Zones scaled to the area ``side`` (200 m: the
+    paper's): two static ones that overlap and a small one, disjoint from
+    both at t = 0, drifting at (2.6, 1.8) m/s and reflected off the walls."""
+    s = side / 200.0
+    return ZoneSet(centers=((60.0 * s, 100.0 * s), (110.0 * s, 100.0 * s),
+                            (150.0 * s, 165.0 * s)),
+                   radii=(45.0 * s, 40.0 * s, 22.0 * s),
+                   drift=((0.0, 0.0), (0.0, 0.0), (2.6, 1.8)))
+
+
+def grid_zones() -> ZoneSet:
+    """32 discs on an 8 x 4 grid over the paper's area, neighbours in a
+    row overlapping: zone 31 (bit 31, the int32 sign bit) is the top right
+    disc, and a node there alone has the word -2**31."""
+    return ZoneSet(centers=tuple((12.5 + 25.0 * (z % 8), 25.0 + 50.0 * (z // 8))
+                                 for z in range(32)), radii=(14.0,) * 32)
+
+
+#: benchmarks/fig_multizone.py's check: two overlapping zones of 60 m.
+TWO_ZONES = ZoneSet(centers=((75.0, 100.0), (125.0, 100.0)), radii=(60.0, 60.0))
+#: ... its quick form, uncut: 4000 slots sampled every 32, seeds 0 and 1
+#: as one B = 2 sweep, the second half's mean a zone
+ZCHECK_CFG = SimConfig(n_slots=4000, sample_every=32, zones=TWO_ZONES)
+ZCHECK_SEEDS = (0, 1)
+#: tests/test_sim_zones.py:392-395: 15% relative, a_mf >= a_sim - 0.05
+ZCHECK_TOL, ZCHECK_SLACK = 0.15, 0.05
+#: The multizone fixed point, card vs CPU (relative)
+ZONE_RTOL = 1e-6
+#: The zones replays: kind -> the kernel counts of a slot
+ZONE_REPLAYS = {"zones-dense": DENSE_ONLY, "zones-cells": CELLS_ONLY,
+                "zones-32": DENSE_ONLY,
+                "zones-learn": dict(DENSE_ONLY, gossip_merge_rows=1)}
+SIGN_BIT = -2 ** 31
+
+
+def zones_replay(refs: dict, sweep_slots: int = 160) -> dict:
+    """Card runs replaying the CPU's positions with several Replication
+    Zones, bit for bit on every trace, the per-zone ones included: (a)
+    three zones, one drifting, dense N = 200, 304 slots; (b) the same
+    layout scaled to the area on the cells backend, N = 1024, 160 slots;
+    (c) 32 zones, nodes in zone 31 alone, 160 slots; (d) ``harsh()`` with
+    logreg learning across two zones, 160 slots, every row merge held to
+    its plain version; each run's contact kernel held to its plain version
+    on the run's last inputs. Then (e) a B = 4 sweep over the three zones
+    whose rows (0, 0) and (1, 1) equal B = 1 card runs."""
+    out, lines = {}, []
+    for kind, per_slot in ZONE_REPLAYS.items():
+        p, cfg, task = replay_case(kind)
+        cpu, track, t_cpu = refs[kind].result()
+        cells_path = per_slot is CELLS_ONLY
+        name = "cell_close_words" if cells_path else "pairwise_contacts"
+        module = sim_cells if cells_path else sim_contacts
+        with Recorder(name, keep=1, module=module) as rec, \
+                Recorder("gossip_merge_rows") as rec_m:
+            reset_counts()
+            t = time.perf_counter()
+            gpu = simulate(p, dataclasses.replace(cfg, mobility="replay"),
+                           seed=0, positions=track, task=task)
+            t_gpu = time.perf_counter() - t
+            launches = counts()
+        if launches != per_run(per_slot, slots_run(cfg)):
+            raise AssertionError(f"{kind} launches {launches}")
+        fields = TRACES + (("nbr_overflow",) if cells_path else ())
+        if cfg.learn is not None:
+            fields += FAULT_FIELDS + ("merge_stats",)
+            for k in LEARN_TOL:
+                close(getattr(gpu, k), getattr(cpu, k), *LEARN_TOL[k],
+                      f"{kind} {k}")
+        same_traces(cpu, gpu, f"{kind}: card != CPU", fields)
+        k_zones = cfg.zones.k
+        if gpu.n_in_rz_z.shape[-1] != k_zones or \
+                not np.all(gpu.n_in_rz_z.max(axis=0) > 0):
+            raise AssertionError(f"{kind}: zones {gpu.n_in_rz_z.max(axis=0)}")
+        (args, kw), = rec.calls
+        if cells_path:
+            got, want = ([kc.cell_close_words(*args, **kw)],
+                         [kc.cell_close_words_ref(*args, **kw)])
+        else:
+            got = kc.pairwise_contacts(*args, **kw)
+            want = kc.pairwise_contacts_ref(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{kind}: {name} != plain on the run's "
+                                 f"last inputs")
+        err = max_abs_err(got, want)
+        line = (f"{kind} K={k_zones} N={cfg.n_nodes} {slots_run(cfg)} "
+                f"slots: every trace bit for bit, final n_in_rz_z "
+                f"{gpu.n_in_rz_z[-1].tolist()}, {name} launches "
+                f"{launches[name]}, == plain on the last inputs")
+        if kind == "zones-32":
+            words = zone_words_of(track, cfg)
+            alone = int((words == SIGN_BIT).sum())
+            if alone == 0:
+                raise AssertionError("zones-32: no node in zone 31 alone")
+            line += (f", {alone} node-slots in zone 31 alone (word "
+                     f"{SIGN_BIT}), max n_in_rz_z[31] "
+                     f"{int(gpu.n_in_rz_z[:, 31].max())}")
+        merged = 0
+        if cfg.learn is not None:
+            merged, m_err = held_to_plain(rec_m, gm.gossip_merge_rows,
+                                          gm.gossip_merge_rows_ref)
+            err = max(err, m_err)
+            line += (f", gossip_merge_rows launches "
+                     f"{launches['gossip_merge_rows']} == plain on the last "
+                     f"{len(rec_m.calls)} merges ({merged} rows), "
+                     f"fault_events {gpu.fault_events[-1].tolist()}")
+        out[kind] = dict(launches=launches, max_abs_err=err)
+        lines.append(line + f"; cpu {t_cpu:.1f}s (worker), gpu {t_gpu:.1f}s")
+
+    ps = [paper_params(lam=lam, M=1) for lam in FAULT_SWEEP_LAMS]
+    cfg = SimConfig(n_slots=sweep_slots, zones=three_zones())
+    reset_counts()
+    t = time.perf_counter()
+    batch = sweep.run(ps, cfg, SWEEP_SEEDS)
+    wall = time.perf_counter() - t
+    if counts() != per_run(DENSE_ONLY, slots_run(cfg)):
+        raise AssertionError(f"zones-replay sweep launches {counts()}")
+    out["sweep"] = dict(launches=counts())
+    for i, j in ((0, 0), (1, 1)):
+        one = simulate(ps[i], cfg, seed=SWEEP_SEEDS[j])
+        same_rows(batch, i, j, one, "zones-replay sweep", SWEEP_TRACES)
+    lines.append(
+        f"three-zone sweep lam {FAULT_SWEEP_LAMS} x seeds {SWEEP_SEEDS} "
+        f"(B={len(ps) * len(SWEEP_SEEDS)}), {slots_run(cfg)} slots: rows "
+        f"(0, 0) and (1, 1) equal B=1 card runs bit for bit on every trace; "
+        f"launches {out['sweep']['launches']['pairwise_contacts']}; sweep "
+        f"{wall:.1f}s")
+    phase("zones-replay", "; ".join(lines))
+    return out
+
+
+def zone_words_of(track, cfg: SimConfig) -> torch.Tensor:
+    """The zone words of every slot a run over static zones moved through
+    (slots 1 on), as the engine computes them."""
+    pos = torch.as_tensor(np.asarray(track[1:slots_run(cfg) + 1]),
+                          dtype=torch.float32, device="cuda")
+    return pack_mask(zone_member(pos, effective_zones(cfg)))[..., 0]
+
+
+def multizone_pair(p, zs: ZoneSet) -> dict:
+    """The multizone fixed point and its DDE on the card and on the CPU,
+    with the card's wall times."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cm = paper_contact_model(device=dev)
+        t = time.perf_counter()
+        mz = solve_fixed_point_multizone(p, cm, zs, density=DENSITY,
+                                         speed=SPEED_DEFAULT, strict=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t_fp = time.perf_counter() - t
+        t = time.perf_counter()
+        dde = solve_observation_availability_multizone(p, mz, strict=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = dict(mz=mz, dde=dde, t_fp=t_fp,
+                        t_dde=time.perf_counter() - t)
+    return out
+
+
+def zones_check() -> dict:
+    """benchmarks/fig_multizone.py's Monte-Carlo check (``_sim_check``,
+    quick form, uncut) on the card: two overlapping zones at the paper
+    point, one B = 2 sweep (seeds 0, 1) of 4000 slots, ``reduce="mean"``
+    over the second half; each zone's seed-mean availability within 15% of
+    ``solve_fixed_point_multizone`` on the card and ``a_mf >= a_sim -
+    0.05``; the contact kernel held to its plain version on the sweep's
+    last inputs. Then the multizone fixed point and DDE on the card
+    against the CPU's."""
+    p = paper_params(lam=0.05, M=1)
+    both = multizone_pair(p, TWO_ZONES)
+    card, cpu = both["cuda"], both["cpu"]
+    a_mf = card["mz"].a.cpu().numpy()
+    with Recorder("pairwise_contacts", keep=1, module=sim_contacts) as rec:
+        reset_counts()
+        t = time.perf_counter()
+        summ = sweep.run([p], ZCHECK_CFG, ZCHECK_SEEDS, reduce="mean",
+                         warmup_frac=0.5)
+        wall = time.perf_counter() - t
+        launches = counts()
+    n_slots = slots_run(ZCHECK_CFG)
+    if launches != per_run(DENSE_ONLY, n_slots):
+        raise AssertionError(f"zones-check launches {launches}")
+    (args, kw), = rec.calls
+    got, want = (kc.pairwise_contacts(*args, **kw),
+                 kc.pairwise_contacts_ref(*args, **kw))
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("zones-check: kernel != plain on the sweep's "
+                             "last inputs")
+    a_seed = np.asarray(summ.stats["availability_z"])[0]      # (R, M, K)
+    a_sim = a_seed.mean(axis=(0, 1))
+    errs = np.abs(a_mf - a_sim) / np.maximum(a_sim, 1e-9)
+    b = len(ZCHECK_SEEDS)
+    zones = "; ".join(
+        f"zone {z}: sim {a_sim[z]:.6f} (seeds "
+        f"{[round(float(v), 6) for v in a_seed[:, 0, z]]}) mf {a_mf[z]:.6f} "
+        f"rel err {errs[z]:.4f}" for z in range(TWO_ZONES.k))
+    line = (f"two zones of 60 m at (75, 100) and (125, 100), paper point, "
+            f"B={b} N={ZCHECK_CFG.n_nodes} {n_slots} slots, second half: "
+            f"{zones}; slots/s={n_slots / wall:.1f} run-slots/s="
+            f"{b * n_slots / wall:.1f}; launches "
+            f"{launches['pairwise_contacts']}, == plain on the last inputs")
+    if np.any(errs >= ZCHECK_TOL) or np.any(a_mf < a_sim - ZCHECK_SLACK):
+        raise AssertionError(f"zones-check: beyond {ZCHECK_TOL} or "
+                             f"a_mf < a_sim - {ZCHECK_SLACK}; {line}")
+    phase("zones-check", line + f" (within {ZCHECK_TOL}, a_mf >= a_sim - "
+                                f"{ZCHECK_SLACK})")
+    fields = ("a", "b", "S", "T_S", "r", "d_M", "d_I", "N_z", "alpha_z",
+              "Lam_z", "R")
+    a_rel = max(close(getattr(card["mz"], f), getattr(cpu["mz"], f),
+                      ZONE_RTOL, 0.0, f"zones-check {f}") for f in fields)
+    o_abs = close(card["dde"].o, cpu["dde"].o, 0.0, DDE_ATOL,
+                  "zones-check o")
+    phase("zones-check", (
+        f"multizone solvers card vs cpu: fixed point max abs diff "
+        f"{a_rel:.3e} (rtol {ZONE_RTOL}), o(tau) {tuple(card['dde'].o.shape)} "
+        f"max abs diff {o_abs:.3e} (atol {DDE_ATOL}); wall on the card: "
+        f"fixed point {card['t_fp']:.3f}s, dde {card['t_dde']:.3f}s; on the "
+        f"cpu {cpu['t_fp']:.3f}s, {cpu['t_dde']:.3f}s"))
+    return dict(launches=launches["pairwise_contacts"],
+                max_abs_err=max_abs_err(got, want))
+
+
+def zone_profiles() -> None:
+    """Kernels and device time a slot of zones-replay's three-zone run
+    beside the paper point's (B = 1, 32 slots each)."""
+    p = paper_params(lam=0.05, M=1)
+    profile_slots("paper", p, SimConfig(n_slots=32), n_slots=32)
+    profile_slots("zones-3", p, SimConfig(n_slots=32, zones=three_zones()),
+                  n_slots=32)
+
+
+def twin_phases(start: float) -> tuple:
+    """The third process on the card: ``contam_twin``, then
+    ``zones_check``."""
+    contam = contam_twin(start)
+    return contam, zones_check()
 
 
 # ------------------------------------------------------- the gossip round
@@ -3596,15 +3887,29 @@ def replay_case(kind: str) -> tuple:
         return (paper_params(**LEARN_PARAMS),
                 SimConfig(n_slots=304, faults=harsh_adversarial(), learn=lc),
                 learning.make_task(lc, "cpu"))
-    p, cfg = scaled_point(1024, {"cells-replay": 500, "faults-cells": 304}[kind])
+    if kind == "zones-dense":
+        return (paper_params(lam=0.05, M=1),
+                SimConfig(n_slots=304, zones=three_zones()), None)
+    if kind == "zones-32":
+        return (paper_params(lam=0.05, M=1),
+                SimConfig(n_slots=160, zones=grid_zones()), None)
+    if kind == "zones-learn":
+        lc = logreg_task()
+        return (paper_params(**LEARN_PARAMS),
+                SimConfig(n_slots=160, faults=harsh(), learn=lc,
+                          zones=TWO_ZONES), learning.make_task(lc, "cpu"))
+    p, cfg = scaled_point(1024, {"cells-replay": 500, "faults-cells": 304,
+                                 "zones-cells": 160}[kind])
     if kind == "faults-cells":
         cfg = dataclasses.replace(cfg, faults=harsh())
+    if kind == "zones-cells":
+        cfg = dataclasses.replace(cfg, zones=three_zones(cfg.area_side))
     return p, cfg, None
 
 
 #: The replay phases, in the order the script reaches them.
 REPLAYS = ("replay", "cells-replay", "logreg", "mlp", "faults-dense",
-           "faults-cells", "attack")
+           "faults-cells", "attack") + tuple(ZONE_REPLAYS)
 
 
 def side_phases(start: float) -> dict:
@@ -3635,6 +3940,7 @@ def side_phases(start: float) -> dict:
         sweep_learn()
         cells_vs_dense()
         faulted["attack"] = attack_replay(refs)
+        faulted["zones"] = zones_replay(refs)
         check_init_replay()
         check_round_replay()
         serve_replay()
@@ -3710,11 +4016,11 @@ def main() -> int:
     twin = concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn)
     try:
         job = side.submit(side_phases, _START)
-        twin_job = twin.submit(contam_twin, _START)
+        twin_job = twin.submit(twin_phases, _START)
         finish_mf = mf_check(an)
         finish_zipf = faults_check(sol)
         faulted = job.result()
-        faulted["contam"] = twin_job.result()
+        faulted["contam"], faulted["zones-check"] = twin_job.result()
     finally:
         side.shutdown(wait=True, cancel_futures=True)
         twin.shutdown(wait=True, cancel_futures=True)
@@ -3735,6 +4041,7 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
     rows = learn_run()
     scaled = defended_run()
     attack_profiles()
+    zone_profiles()
     params, default, state = gossip_replicas()
     check_gossip_round(params, default, state)
     flat = rounds_run(params, default, state)
@@ -3751,15 +4058,22 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
     del mamba_params
 
     attack, contam = faulted["attack"], faulted["contam"]
+    zones, zcheck = faulted["zones"], faulted["zones-check"]
+
+    def zone_launches(name):
+        return sum(run["launches"][name] for run in zones.values())
+
+    zone_err = max(run.get("max_abs_err", 0) for run in zones.values())
 
     def merge_record(name, run, line, attack_launches):
         return dict(
             name=name, route="cuda", source="src/repro_torch/csrc/gossip_merge.cu",
             replaces=f"src/repro/kernels/gossip_merge.py:{line}",
             launches=(run["launches"] + attack_launches
-                      + contam["launches"][name]),
+                      + contam["launches"][name] + zone_launches(name)),
             max_abs_err=max(merge_worst, run["max_abs_err"],
-                            attack["max_abs_err"], contam["max_abs_err"]),
+                            attack["max_abs_err"], contam["max_abs_err"],
+                            zone_err if name == "gossip_merge_rows" else 0),
             ms=run["ms"], plain_ms=run["plain_ms"], bound_ms=run["bound_ms"],
             bound_by=run["bound_by"], library_ms=run["library_ms"])
 
@@ -3767,11 +4081,13 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
         name="pairwise_contacts", route="cuda",
         source="src/repro_torch/csrc/contacts.cu",
         replaces="src/repro/kernels/contacts.py:299",
-        launches=main_run["launches"] + zipf["launches"],
+        launches=(main_run["launches"] + zipf["launches"]
+                  + zone_launches("pairwise_contacts") + zcheck["launches"]),
         max_abs_err=max(err, main_run["max_abs_err"],
                         dense_run["max_abs_err"], fault_worst,
                         zipf["max_abs_err"],
-                        faulted["faults-dense"]["max_abs_err"]),
+                        faulted["faults-dense"]["max_abs_err"], zone_err,
+                        zcheck["max_abs_err"]),
         ms=main_run["ms"], plain_ms=main_run["plain_ms"],
         bound_ms=main_run["bound_ms"], bound_by=main_run["bound_by"],
         library_ms=None,
@@ -3781,9 +4097,10 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
         name="cell_close_words", route="cuda",
         source="src/repro_torch/csrc/cells.cu",
         replaces="src/repro/kernels/contacts.py:473",
-        launches=cell_run["launches"] + faulted["faults-cells"]["launches"],
+        launches=(cell_run["launches"] + faulted["faults-cells"]["launches"]
+                  + zone_launches("cell_close_words")),
         max_abs_err=max(cell_worst, cell_run["max_abs_err"], fault_worst,
-                        faulted["faults-cells"]["max_abs_err"]),
+                        faulted["faults-cells"]["max_abs_err"], zone_err),
         ms=cell_run["ms"], plain_ms=cell_run["plain_ms"],
         bound_ms=cell_run["bound_ms"], bound_by=cell_run["bound_by"],
         library_ms=None), dict(

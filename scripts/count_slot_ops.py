@@ -1,8 +1,9 @@
-"""What the fault layer and the Byzantine attack add to a slot, counted on
-the CPU: the aten operations a slot dispatches (each is one kernel launch
-on the card, but for views), with and without faults, with learning under
-``robust_defense()`` with and without ``harsh_adversarial()``, and those
-of the draws.
+"""What the fault layer, the Byzantine attack and several Replication
+Zones add to a slot, counted on the CPU: the aten operations a slot
+dispatches (each is one kernel launch on the card, but for views), with
+and without faults, with learning under ``robust_defense()`` with and
+without ``harsh_adversarial()``, with three zones (one drifting) and with
+32, and those of the draws.
 
     PYTHONPATH=src python scripts/count_slot_ops.py
 
@@ -26,7 +27,15 @@ from repro_torch.configs.fg_adversarial import (harsh_adversarial,
 from repro_torch.configs.fg_faults import harsh, zipf_mix
 from repro_torch.configs.fg_learn import logreg_task
 from repro_torch.configs.fg_paper import paper_params
+from repro_torch.core.zones import ZoneSet
 from repro_torch.sim import SimConfig, faults, sweep
+
+#: Two overlapping zones and a small drifting one (chip_smoke's zones-replay)
+THREE_ZONES = ZoneSet(centers=((60.0, 100.0), (110.0, 100.0), (150.0, 165.0)),
+                      radii=(45.0, 40.0, 22.0),
+                      drift=((0.0, 0.0), (0.0, 0.0), (2.6, 1.8)))
+GRID_ZONES = ZoneSet(centers=tuple((12.5 + 25.0 * (z % 8), 25.0 + 50.0 * (z // 8))
+                                   for z in range(32)), radii=(14.0,) * 32)
 
 
 class Count(TorchDispatchMode):
@@ -47,10 +56,11 @@ def counted(fn) -> int:
     return c.n
 
 
-def per_slot(fc, lc=None) -> float:
+def per_slot(fc, lc=None, zones=None) -> float:
     p = paper_params(lam=0.05, M=1, **({} if lc is None else dict(Lam=10.0)))
     n = [counted(lambda: sweep.run([p], SimConfig(n_slots=s, sample_every=8,
-                                                  faults=fc, learn=lc),
+                                                  faults=fc, learn=lc,
+                                                  zones=zones),
                                    (0, 1), device="cpu"))
          for s in (16, 48)]
     return (n[1] - n[0]) / 32
@@ -60,6 +70,10 @@ def main() -> None:
     for label, fc in (("no faults", None), ("zipf_mix(3)", zipf_mix(
             n_classes=3)), ("harsh()", harsh())):
         print(f"{label}: {per_slot(fc)} aten ops a slot (B = 2, N = 200)")
+    for label, zs in (("three zones, one drifting", THREE_ZONES),
+                      ("32 zones", GRID_ZONES)):
+        print(f"{label}: {per_slot(None, zones=zs)} aten ops a slot (B = 2, "
+              f"N = 200)")
     defended = dataclasses.replace(logreg_task(), defense=robust_defense())
     for label, fc in (("logreg + robust_defense()", None),
                       ("logreg + robust_defense() + harsh()", harsh()),

@@ -27,6 +27,10 @@ the pre-``d_I`` zero region and the Eq. (6) plateau are step-index gates.
 Each point's arithmetic is the scalar solver's, operation for operation,
 so each row equals the scalar solve on the same grid bit for bit.
 
+:func:`solve_observation_availability_multizone` integrates one lane a
+zone of a multi-zone operating point with the migration exchange term
+``sum_z' couple[z, z'] (o_z' - o_z)`` added (the same scan, ``couple``).
+
 :func:`solve_observation_availability_classes` is the fault layer's
 twin: one lane per fault class, with the class fixed point's corrected
 coefficients, integrated by the same batched scan (at a disabled fault
@@ -54,12 +58,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.meanfield import (FGParams, MeanFieldSolution,
+                                        MultizoneSolution,
                                         _poison_intensity)
 from repro_torch.numerics import fma32, row_sum32
 
 __all__ = ["DDESolution", "solve_observation_availability",
            "solve_observation_availability_batch",
            "solve_observation_availability_classes",
+           "solve_observation_availability_multizone",
            "solve_contamination_transient"]
 
 
@@ -132,11 +138,14 @@ class DDESolution:
                            converged=self.converged, residual=self.residual)
 
 
-def _euler_step(o, o_delayed, coeff, a, leak, dt: float):
+def _euler_step(o, o_delayed, coeff, a, leak, dt: float, exchange=None):
     """One step of Eq. (5): the same operations for one point and for a
-    batch, so the two round alike."""
+    batch, so the two round alike. ``exchange`` is the multi-zone
+    coupling's term, added to the derivative."""
     do = coeff * ((1.0 - a) * o + a * o_delayed * (1.0 - o_delayed)) \
         - leak * o
+    if exchange is not None:
+        do = do + exchange
     return torch.clamp(o + dt * do, 0.0, 1.0)
 
 
@@ -211,7 +220,7 @@ def solve_observation_availability(p: FGParams, sol: MeanFieldSolution, *,
 
 def _integrate_batch(coeff, a, leak, o0, start: np.ndarray,
                      n_pre: np.ndarray, n_delay: np.ndarray, n_total: int,
-                     buf_len: int, dt: float) -> torch.Tensor:
+                     buf_len: int, dt: float, couple=None) -> torch.Tensor:
     """One scan over the shared τ grid for every point at once: ``(P,
     n_total)``.
 
@@ -221,7 +230,12 @@ def _integrate_batch(coeff, a, leak, o0, start: np.ndarray,
     (entries not yet written hold the plateau o0, the Eq. (6) history)
     and writes its current value at k mod ``buf_len``. Before ``start`` a
     point's o stays o0 and its writes land on entry 0, which holds o0
-    already. Points with ``start >= n_total`` never integrate."""
+    already. Points with ``start >= n_total`` never integrate.
+
+    ``couple`` (a zero-diagonal ``(P, P)`` matrix, the multi-zone solver's)
+    adds ``sum_j couple[i, j] (o_j(τ) - o_i(τ))`` to point i's derivative,
+    ``o_j`` being point j's emitted value: 0 before its ``d_I``, its
+    plateau until it integrates."""
     device = o0.device
     p_count = o0.shape[0]
     t = np.arange(n_total)[:, None]
@@ -230,16 +244,23 @@ def _integrate_batch(coeff, a, leak, o0, start: np.ndarray,
     read = torch.from_numpy((k - n_delay[None, :]) % buf_len).to(device)
     write = torch.from_numpy(k % buf_len).to(device)
     active_t = torch.from_numpy(active).to(device)
+    pre = torch.from_numpy(t < n_pre[None, :]).to(device)
+    if couple is not None:
+        couple_out = couple.sum(1)
     buf = o0[:, None].expand(p_count, buf_len).contiguous()
     out = torch.empty((n_total, p_count), dtype=torch.float32, device=device)
     o = o0
     for step in range(n_total):
         o_delayed = buf.gather(1, read[step, :, None])[:, 0]
-        o_new = _euler_step(o, o_delayed, coeff, a, leak, dt)
+        exchange = None
+        if couple is not None:
+            cur = torch.where(pre[step], 0.0,
+                              torch.where(active_t[step], o, o0))
+            exchange = couple @ cur - couple_out * o
+        o_new = _euler_step(o, o_delayed, coeff, a, leak, dt, exchange)
         buf.scatter_(1, write[step, :, None], o[:, None])
         o = torch.where(active_t[step], o_new, o)
         out[step] = o
-    pre = torch.from_numpy(t < n_pre[None, :]).to(device)
     return torch.where(pre, 0.0, torch.where(active_t, out, o0)).T
 
 
@@ -262,23 +283,10 @@ def solve_observation_availability_batch(ps: list[FGParams],
                  for p in ps]
     n_total, tau = _grid(max(tau_maxes), dt, device)
 
-    d_I = sols.d_I.double().cpu().numpy()
-    d_M = sols.d_M.double().cpu().numpy()
-    finite = np.isfinite(d_I) & np.isfinite(d_M)
-    d_I0 = np.where(finite, d_I, 0.0)
-    d_M0 = np.where(finite, d_M, 0.0)
-    # the scalar solver's region arithmetic, vectorized (and pushed past
-    # the grid end for unstable points so they never activate)
-    n_pre = np.minimum(np.round(d_I0 / dt).astype(np.int64), n_total)
-    n_plateau = np.minimum(np.round(d_M0 / dt).astype(np.int64) + 1,
-                           n_total - n_pre)
-    n_delay = np.maximum(np.round(d_M0 / dt).astype(np.int64), 1)
-    n_pre = np.where(finite, n_pre, n_total)
-    n_plateau = np.where(finite, n_plateau, 0)
-    start = n_pre + n_plateau
-    # points that never integrate do not set the shared buffer's length
-    n_delay = np.where(start < n_total, n_delay, 1)
-    buf_len = int(n_delay.max())
+    # the scalar solver's region arithmetic, vectorized
+    finite, start, n_pre, n_delay, buf_len = _regions(
+        sols.d_I.double().cpu().numpy(), sols.d_M.double().cpu().numpy(),
+        n_total, dt)
 
     def f32(vals):
         return torch.tensor(vals, dtype=torch.float32, device=device)
@@ -302,6 +310,76 @@ def solve_observation_availability_batch(ps: list[FGParams],
                        residual=residual)
 
 
+def _regions(d_I: np.ndarray, d_M: np.ndarray, n_total: int, dt: float):
+    """Each lane's ``(finite, start, n_pre, n_delay, buf_len)`` on the
+    shared grid: the zero region before ``d_I``, the Eq. (6) plateau until
+    ``start``, the delay in steps; unstable lanes (infinite delays) are
+    pushed past the grid's end and never integrate."""
+    finite = np.isfinite(d_I) & np.isfinite(d_M)
+    d_I0 = np.where(finite, d_I, 0.0)
+    d_M0 = np.where(finite, d_M, 0.0)
+    n_pre = np.minimum(np.round(d_I0 / dt).astype(np.int64), n_total)
+    n_plateau = np.minimum(np.round(d_M0 / dt).astype(np.int64) + 1,
+                           n_total - n_pre)
+    n_delay = np.maximum(np.round(d_M0 / dt).astype(np.int64), 1)
+    n_pre = np.where(finite, n_pre, n_total)
+    n_plateau = np.where(finite, n_plateau, 0)
+    start = n_pre + n_plateau
+    # lanes that never integrate do not set the shared buffer's length
+    n_delay = np.where(start < n_total, n_delay, 1)
+    return finite, start, n_pre, n_delay, int(n_delay.max())
+
+
+def solve_observation_availability_multizone(p: FGParams, mz, *,
+                                             dt: float = 0.05,
+                                             tau_max: float | None = None,
+                                             strict: bool = False
+                                             ) -> DDESolution:
+    """Zone-coupled Theorem-1 DDE for a multi-zone operating point ``mz``
+    (a ``core.meanfield.MultizoneSolution``), on its device.
+
+    Each zone integrates Eq. (5) with its own coefficients (``a_z``,
+    ``b_z``, ``S_z``, ``T_S_z``, leak ``alpha_z w / N_z``) and its own
+    Eq. (6) plateau ``Lam_z / ceil(a_z N_z)``, plus the migration exchange
+
+        + sum_z' (w R[z, z'] a_z' / (a_z N_z)) (o_z' - o_z):
+
+    holders enter zone ``z`` from ``z'`` at rate ``R[z, z'] a_z'`` carrying
+    incorporation probability ``o_z'``. Disjoint zones give the uncoupled
+    per-zone solves; unstable zones emit o == 0 and couple as empty. ``o``
+    has a leading zone axis."""
+    device = mz.a.device
+    n_total, tau = _grid(float(tau_max if tau_max is not None else p.tau_l),
+                         dt, device)
+    finite, start, n_pre, n_delay, buf_len = _regions(
+        mz.d_I.double().cpu().numpy(), mz.d_M.double().cpu().numpy(),
+        n_total, dt)
+
+    a, N_z = mz.a, mz.N_z
+    o0 = mz.Lam_z / torch.ceil(torch.clamp_min(a * N_z, 1.0))
+    o0 = torch.where(torch.from_numpy(finite).to(device), o0, 0.0)
+    coeff = mz.b * mz.S * p.w * p.w / torch.clamp_min(mz.T_S, 1e-12)
+    leak = mz.alpha_z * p.w / N_z
+    _check_finite_coeffs(coeff=coeff, a=a, leak=leak, o0=o0)
+
+    R = mz.R.double().cpu().numpy()
+    R_off = R - np.diag(np.diag(R))
+    a_np = a.double().cpu().numpy()
+    holders = np.maximum(a_np * N_z.double().cpu().numpy(), 1e-12)
+    couple = p.w * R_off * a_np[None, :] / holders[:, None]
+    couple = np.where(finite[:, None] & finite[None, :], couple, 0.0)
+
+    o = _integrate_batch(coeff, a, leak, o0, start, n_pre, n_delay, n_total,
+                         buf_len, dt, couple=torch.tensor(
+                             couple, dtype=torch.float32, device=device))
+    converged, residual = _trace_diag(o, dt)
+    if strict:
+        _strict_trace(converged,
+                      what="solve_observation_availability_multizone")
+    return DDESolution(tau=tau, o=o, dt=dt, converged=converged,
+                       residual=residual)
+
+
 def solve_observation_availability_classes(p: FGParams, csol, faults=None,
                                            *, dt: float = 0.05,
                                            tau_max: float | None = None,
@@ -317,20 +395,22 @@ def solve_observation_availability_classes(p: FGParams, csol, faults=None,
 
     ``o`` is ``(C, K, nt)``; :meth:`DDESolution.weighted` collapses the
     class axis. At a disabled configuration (``csol.base`` set) it
-    delegates to :func:`solve_observation_availability`, bit for bit, with
-    weight 1; a multi-zone ``csol.base`` raises ``NotImplementedError``."""
+    delegates to :func:`solve_observation_availability` (or to
+    :func:`solve_observation_availability_multizone` when ``csol.base`` is
+    a ``MultizoneSolution``), bit for bit, with weight 1."""
     fc = faults if faults is not None else getattr(p, "faults", None)
     base = csol.base
     if base is not None:
-        if hasattr(base, "R"):
-            raise NotImplementedError(
-                "repro_torch's solve_observation_availability_classes solves "
-                "a single Replication Zone; ZoneSets come with the "
-                "multi-zone slice (ROADMAP queue 1, item 5)")
-        sol = solve_observation_availability(p, base, dt=dt, tau_max=tau_max,
-                                             strict=strict)
+        if isinstance(base, MultizoneSolution):
+            sol = solve_observation_availability_multizone(
+                p, base, dt=dt, tau_max=tau_max, strict=strict)
+            o = sol.o[None, :, :]
+        else:
+            sol = solve_observation_availability(
+                p, base, dt=dt, tau_max=tau_max, strict=strict)
+            o = sol.o[None, None, :]
         return DDESolution(
-            tau=sol.tau, o=sol.o[None, None, :], dt=dt,
+            tau=sol.tau, o=o, dt=dt,
             weights=torch.ones((1,), dtype=torch.float32,
                                device=sol.o.device),
             converged=sol.converged, residual=sol.residual)
@@ -345,19 +425,8 @@ def solve_observation_availability_classes(p: FGParams, csol, faults=None,
     def lanes(x):
         return np.broadcast_to(x.double().cpu().numpy(), (C, K)).ravel()
 
-    d_I, d_M = lanes(csol.d_I), lanes(csol.d_M)
-    finite = np.isfinite(d_I) & np.isfinite(d_M)
-    d_I0 = np.where(finite, d_I, 0.0)
-    d_M0 = np.where(finite, d_M, 0.0)
-    n_pre = np.minimum(np.round(d_I0 / dt).astype(np.int64), n_total)
-    n_plateau = np.minimum(np.round(d_M0 / dt).astype(np.int64) + 1,
-                           n_total - n_pre)
-    n_delay = np.maximum(np.round(d_M0 / dt).astype(np.int64), 1)
-    n_pre = np.where(finite, n_pre, n_total)
-    n_plateau = np.where(finite, n_plateau, 0)
-    start = n_pre + n_plateau
-    n_delay = np.where(start < n_total, n_delay, 1)
-    buf_len = int(n_delay.max())
+    finite, start, n_pre, n_delay, buf_len = _regions(
+        lanes(csol.d_I), lanes(csol.d_M), n_total, dt)
 
     q, a_serve, N_z = csol.q, csol.a_serve, csol.N_z
     coeff_z = csol.b * csol.S * p.w * p.w / torch.clamp_min(csol.T_S, 1e-12)

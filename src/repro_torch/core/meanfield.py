@@ -24,17 +24,27 @@ the scalar solutions bit for bit, on either device. The reference's
 jitted program contracts some products into fused multiply-adds and sums
 in its own order, so the two agree to float32 rounding, not bit for bit.
 
+The multi-zone twin, :func:`solve_fixed_point_multizone`, couples one
+such balance a zone of a ``ZoneSet`` through the migration-rate matrix
+(``core.zones.migration_rate_matrix``): entrants through a boundary that
+another zone covers carry that zone's model. It equals the reference's
+loop bit for bit on the CPU with three contractions written as
+:func:`~repro_torch.numerics.fma32` (the zone sum ``R_off @ a``, the
+root's ``H*H + 4 G (lt + inj)``, the occupation bound ``gamma*T_L + t0``
+under the reference's ``vmap``) and its residual step and post-loop
+quantities unfused, as the reference takes them eagerly.
+
 The fault layer's analytic twin, :func:`solve_fixed_point_classes`,
-solves the class-structured fixed point of a single Replication Zone (one
-lane per fault class; at a disabled fault configuration it delegates to
-:func:`solve_fixed_point`). The Byzantine layer's,
+solves the class-structured fixed point, one lane per fault class and one
+column a zone (at a disabled fault configuration it delegates to
+:func:`solve_fixed_point`, or to :func:`solve_fixed_point_multizone` with
+a ``ZoneSet``). The Byzantine layer's,
 :func:`solve_contamination_classes`, rides it: the steady poisoned-replica
 fraction per class (its transient is ``core.dde.
 solve_contamination_transient``). It computes what the reference's jitted
 loop does bit for bit on the same class solution: XLA fuses the poison
 intensity's ``eta_honest`` product and each class sum (``einsum``) into
-multiply-adds, written here as :func:`~repro_torch.numerics.fma32`. The
-multi-zone solvers come with their slice (ROADMAP queue 1, item 5).
+multiply-adds, written here as :func:`~repro_torch.numerics.fma32`.
 """
 
 from __future__ import annotations
@@ -46,11 +56,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.mobility import ContactModel
-from repro_torch.core.zones import ZoneSet
+from repro_torch.core.zones import ZoneSet, migration_rate_matrix, union_area
 from repro_torch.numerics import fma32, row_sum32, sqrt32
 
-__all__ = ["FGParams", "MeanFieldSolution", "ClassSolution", "transfer_stats",
-           "solve_fixed_point", "solve_fixed_point_batch",
+__all__ = ["FGParams", "MeanFieldSolution", "MultizoneSolution",
+           "ClassSolution", "transfer_stats", "solve_fixed_point",
+           "solve_fixed_point_batch", "solve_fixed_point_multizone",
            "solve_fixed_point_classes", "merge_arrival_rate",
            "queueing_delays", "stability_lhs", "ContaminationSolution",
            "contamination_closed_form", "solve_contamination_classes"]
@@ -141,7 +152,7 @@ def _param_tensors(ps: list[FGParams], device, batched: bool) -> dict:
 
 
 def _transfer_stats_core(a, *, M, w, t0, T_L, t_grid, pdf, weights,
-                         fail_rate=None):
+                         fail_rate=None, fused: bool = False):
     """Lemma 1's integrals ``(S(a), T_S(a))`` over the contact grid, for
     ``a`` and the parameters of shape ``(...)``.
 
@@ -152,11 +163,15 @@ def _transfer_stats_core(a, *, M, w, t0, T_L, t_grid, pdf, weights,
     link failure at ``mu = 2*fail_rate`` into both: the success integrand
     ``exp(-mu t0) (1 - exp(-mu T_L m_eff)) / (mu T_L gamma)`` with ``m_eff
     = min(n_transferable, gamma)``, the occupation ``(1 - exp(-mu occ)) /
-    mu``. Both sums run over one stacked ``(..., 2, nt)`` tensor."""
+    mu``. Both sums run over one stacked ``(..., 2, nt)`` tensor.
+    ``fused`` takes the occupation bound ``gamma*T_L + t0`` as ``fma(gamma,
+    T_L, t0)``, as XLA contracts it where the reference ``vmap``s this over
+    zones."""
     gamma = torch.clamp_min(2.0 * M * w * w * a, _EPS)[..., None]
     t0, T_L = torch.as_tensor(t0)[..., None], torch.as_tensor(T_L)[..., None]
     n_transferable = torch.floor(torch.clamp_min(t_grid - t0, 0.0) / T_L)
-    occupied = torch.minimum(t_grid, gamma * T_L + t0)
+    occupied = torch.minimum(
+        t_grid, fma32(gamma, T_L, t0) if fused else gamma * T_L + t0)
     if fail_rate is None:
         s_integrand = torch.clamp_max(n_transferable / gamma, 1.0)
         t_integrand = occupied
@@ -374,12 +389,167 @@ def stability_lhs(r: torch.Tensor, d_M, d_I, p: FGParams
 
 
 @dataclasses.dataclass(frozen=True)
+class MultizoneSolution:
+    """Coupled per-zone mean-field operating point of ``k`` zones: every
+    per-zone field carries a leading ``(k,)`` axis; ``R`` is the
+    migration-rate matrix the zones are coupled through
+    (:func:`repro_torch.core.zones.migration_rate_matrix`'s layout)."""
+
+    a: torch.Tensor          # (k,) per-zone model availability
+    b: torch.Tensor          # (k,) busy probability
+    S: torch.Tensor          # (k,) transfer success probability
+    T_S: torch.Tensor        # (k,) mean exchange time [s]
+    r: torch.Tensor          # (k,) merging-task arrival rate [1/s]
+    d_M: torch.Tensor        # (k,) mean merge delay [s]
+    d_I: torch.Tensor        # (k,) mean incorporation delay [s]
+    stability: torch.Tensor  # (k,) Eq. (3) LHS per zone
+    rho: torch.Tensor        # (k,) compute utilization per zone
+    N_z: torch.Tensor        # (k,) mean nodes per zone
+    alpha_z: torch.Tensor    # (k,) total zone exit rate [1/s]
+    Lam_z: torch.Tensor      # (k,) mean simultaneous observers per zone
+    R: torch.Tensor          # (k, k) migration-rate matrix [nodes/s]
+    converged: Any = None    # residual <= tol (whole coupled system)
+    residual: Any = None     # max over zones of |body(a) - a|
+
+    @property
+    def stable(self) -> torch.Tensor:
+        return self.stability <= 1.0
+
+    def zone(self, z: int) -> MeanFieldSolution:
+        """The ``MeanFieldSolution`` view of zone ``z``."""
+        return MeanFieldSolution(
+            a=self.a[z], b=self.b[z], S=self.S[z], T_S=self.T_S[z],
+            r=self.r[z], d_M=self.d_M[z], d_I=self.d_I[z],
+            stability=self.stability[z], rho=self.rho[z])
+
+
+def _zone_system(p: FGParams, zones: ZoneSet, *, density, speed, t,
+                 area_side):
+    """The multizone geometry ``(N_z, alpha_z, Lam_z, R_off, R)`` as float64
+    numpy: per-zone populations, exit rates, observer shares and the
+    state-transferring migration couplings, with the union population by
+    pairwise inclusion-exclusion at the same time-``t`` geometry."""
+    R = np.asarray(migration_rate_matrix(
+        zones, density=density, speed=speed, t=t, area_side=area_side))
+    radii = np.asarray(zones.radii, dtype=np.float64)
+    N_z = density * np.pi * radii**2
+    alpha_z = np.diag(R).copy()
+    R_off = R - np.diag(alpha_z)
+    centers = (
+        zones.centers_at(t, area_side)
+        if zones.moving and area_side is not None
+        else np.asarray(zones.centers, dtype=np.float64)
+    )
+    Lam_z = p.Lam * N_z / max(density * union_area(centers, radii), _EPS)
+    return N_z, alpha_z, Lam_z, R_off, R
+
+
+def _zone_sum(R_off: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``R_off @ x`` over the last axis of ``x`` (``(..., k)`` -> ``(...,
+    k)``) as XLA's CPU dot computes it: the first zone's product, then one
+    fused multiply-add a zone, in zone order."""
+    acc = R_off[:, 0] * x[..., :1]
+    for y in range(1, R_off.shape[1]):
+        acc = fma32(R_off[:, y], x[..., y:y + 1], acc)
+    return acc
+
+
+def solve_fixed_point_multizone(p: FGParams, contact: ContactModel,
+                                zones: ZoneSet | None = None, *,
+                                density: float, speed: float,
+                                t: float = 0.0,
+                                area_side: float | None = None,
+                                iters: int = 200, tol: float = 1e-4,
+                                strict: bool = False) -> MultizoneSolution:
+    """Coupled per-zone Lemma 1-3 fixed point for a ``ZoneSet`` (``zones``,
+    or ``p.zones``), on the contact model's device.
+
+    Each zone runs the single-RZ balance with its population ``N_z =
+    density pi r_z^2``, its exit rate ``alpha_z`` and its share of the
+    observers ``Lam_z = Lam N_z / N_union``, plus the migration injection
+    ``inj_z = sum_z' R[z, z'] a_z'`` (entrants through the part of the
+    boundary that another zone covers carry that zone's model):
+
+        a_z = [H + sqrt(H^2 + 4 G (lam Lam_z + inj_z))] / (2 G),
+        H = G - lam Lam_z - alpha_z,  G = b N_z S w / T_S,
+
+    all zones updated at once by the damped iteration. ``density`` and
+    ``speed`` set the migration fluxes (:func:`~repro_torch.core.zones.
+    migration_rate_matrix`); drifting zones are placed at time ``t``
+    (pass ``area_side``)."""
+    if zones is None:
+        zones = p.zones
+    if zones is None:
+        raise ValueError("no ZoneSet: pass zones= or set FGParams.zones")
+    _check_finite_inputs(p, contact)
+    dev = contact.device
+    N_z, alpha_z, Lam_z, R_off, R = _zone_system(
+        p, zones, density=density, speed=speed, t=t, area_side=area_side)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    pd = _param_tensors([p], dev, batched=False)
+    N_t, alpha_t, Lam_t, R_off_t = f32(N_z), f32(alpha_z), f32(Lam_z), \
+        f32(R_off)
+    w, lam, g = pd["w"], pd["lam"], contact.g
+
+    def stats(a, fused=False):
+        S, T_S = _transfer_stats_core(
+            a, M=pd["M"], w=w, t0=pd["t0"], T_L=pd["T_L"],
+            t_grid=contact.t_grid, pdf=contact.pdf, weights=contact.weights,
+            fused=fused)
+        return torch.clamp_min(S, _EPS), torch.clamp_min(T_S, _EPS)
+
+    def busy(T_S):
+        return torch.clamp_min(_busy_core(T_S, g=g, alpha=alpha_t, N=N_t),
+                               _EPS)
+
+    lt = lam * Lam_t
+
+    def body(a, fused=True):
+        S, T_S = stats(a, fused)
+        G = torch.clamp_min(busy(T_S) * N_t * S * w / T_S, _EPS)
+        inj = _zone_sum(R_off_t, a)
+        H = G - lt - alpha_t
+        # repro's loop contracts the root's `H*H + 4 G (lt + inj)`
+        q = (fma32(4.0 * G, lt + inj, H * H) if fused
+             else H * H + 4.0 * G * (lt + inj))
+        a_new = (H + sqrt32(q)) / (2.0 * G)
+        return 0.5 * a + 0.5 * torch.clamp(a_new, _EPS, 1.0)
+
+    a = torch.full((zones.k,), 0.5, dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        a = body(a)
+    # the reference takes its residual step and the post-loop quantities
+    # eagerly, outside the loop: unfused
+    residual = torch.abs(body(a, fused=False) - a).max()
+    converged = residual <= tol
+    if strict:
+        _strict_check(converged, residual,
+                      what="solve_fixed_point_multizone", iters=iters,
+                      tol=tol)
+    S, T_S = stats(a)
+    b = busy(T_S)
+    r = _merge_rate(a, b, S, M=pd["M"], w=w, g=g)
+    kw = dict(M=pd["M"], w=w, lam=lam, Lam=Lam_t, N=N_t, T_T=pd["T_T"],
+              T_M=pd["T_M"])
+    d_M, d_I = _delays(r, **kw)
+    lhs, rho = _stability(r, alpha=alpha_t, **kw)
+    return MultizoneSolution(
+        a=a, b=b, S=S, T_S=T_S, r=r, d_M=d_M, d_I=d_I, stability=lhs,
+        rho=rho, N_z=N_t, alpha_z=alpha_t, Lam_z=Lam_t,
+        R=f32(R),
+        converged=converged, residual=residual)
+
+
+@dataclasses.dataclass(frozen=True)
 class ClassSolution:
     """Class-structured (class × zone) mean-field operating point, the
     fault layer's analytic twin: ``a[c, z]`` is the steady-state model
     availability among class-``c`` members of zone ``z`` (the simulator's
     ``availability_c``); ``a_serve`` the duty-weighted availability of
-    accessible, serving nodes. The port solves one zone (``K = 1``)."""
+    accessible, serving nodes."""
 
     a: torch.Tensor          # (C, K) per-class per-zone availability
     a_serve: torch.Tensor    # (K,) duty-weighted serving availability
@@ -417,6 +587,9 @@ def _class_vectors(fc):
 
 def solve_fixed_point_classes(p: FGParams, contact: ContactModel,
                               faults=None, zones: ZoneSet | None = None, *,
+                              density: float | None = None,
+                              speed: float | None = None, t: float = 0.0,
+                              area_side: float | None = None,
                               iters: int = 200, tol: float = 1e-4,
                               strict: bool = False) -> ClassSolution:
     """Class-structured coupled Lemma 1-3 fixed point of one Replication
@@ -434,19 +607,33 @@ def solve_fixed_point_classes(p: FGParams, contact: ContactModel,
     ``lt_c = lam Lam q_c / q_bar`` (observers are accessible members);
     ``alpha_c = alpha + crash_rate N`` (a crash loses state like an exit).
 
+    A ``ZoneSet`` (``zones`` or ``p.zones``; it needs ``density`` and
+    ``speed``, and ``t`` and ``area_side`` for a drifting one, as
+    :func:`solve_fixed_point_multizone`) gives each zone its own ``(N_z,
+    alpha_z, Lam_z)`` and adds the class-preserving migration injection
+    ``inj_cz = sum_z' R[z, z'] a_cz'`` to the balance, ``a_cz = (gain +
+    inj) / (gain + inj + alpha_c)``.
+
     At a disabled (or absent) fault configuration it delegates to
-    :func:`solve_fixed_point`, bit for bit, the solution riding along as
-    ``.base``. A ``ZoneSet`` (``zones`` or ``p.zones``) raises
-    ``NotImplementedError``: the multi-zone slice ports it."""
+    :func:`solve_fixed_point` (or :func:`solve_fixed_point_multizone` with
+    a ``ZoneSet``), bit for bit, the solution riding along as ``.base``."""
     fc = faults if faults is not None else getattr(p, "faults", None)
-    if zones is not None or p.zones is not None:
-        raise NotImplementedError(
-            "repro_torch's solve_fixed_point_classes solves a single "
-            "Replication Zone; ZoneSets come with the multi-zone slice "
-            "(ROADMAP queue 1, item 5)")
+    if zones is None:
+        zones = p.zones
     dev = contact.device
     pd = _param_tensors([p], dev, batched=False)
     ones = torch.ones((1,), dtype=torch.float32, device=dev)
+    if (fc is None or not fc.enabled) and zones is not None:
+        base = solve_fixed_point_multizone(
+            p, contact, zones, density=density, speed=speed, t=t,
+            area_side=area_side, iters=iters, tol=tol, strict=strict)
+        return ClassSolution(
+            a=base.a[None, :], a_serve=base.a, q=ones,
+            q_bar=torch.ones((), dtype=torch.float32, device=dev),
+            fracs=ones, b=base.b, S=base.S, T_S=base.T_S, N_z=base.N_z,
+            alpha_z=base.alpha_z, Lam_z=base.Lam_z, r=base.r, d_M=base.d_M,
+            d_I=base.d_I, converged=base.converged, residual=base.residual,
+            base=base)
     if fc is None or not fc.enabled:
         base = solve_fixed_point(p, contact, iters=iters, tol=tol,
                                  strict=strict)
@@ -470,7 +657,14 @@ def solve_fixed_point_classes(p: FGParams, contact: ContactModel,
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
     f_t, q_t, sv_t = f32(fracs), f32(q), f32(serves)
-    N_z, alpha_z, Lam_z = (pd[k].reshape(1) for k in ("N", "alpha", "Lam"))
+    R_off = None
+    if zones is not None:
+        N_z, alpha_z, Lam_z, R_off, _ = (f32(v) for v in _zone_system(
+            p, zones, density=density, speed=speed, t=t,
+            area_side=area_side))
+    else:
+        N_z, alpha_z, Lam_z = (pd[k].reshape(1)
+                               for k in ("N", "alpha", "Lam"))
     w, lam = pd["w"], pd["lam"]
     N_eff = N_z * q_bar
     alpha_c = alpha_z[None, :] + fc.crash_rate * N_z[None, :]
@@ -497,10 +691,14 @@ def solve_fixed_point_classes(p: FGParams, contact: ContactModel,
         lt = lam * Lam_z[None, :] * q_t[:, None] / q_bar
         # XLA contracts repro's `G * a_serve + lt` into one FMA
         gain = fma32(G, a_serve[None, :], lt)
+        if R_off is not None:
+            # class-preserving migration: einsum("zy,cy->cz", R_off, a)
+            gain = gain + _zone_sum(R_off, a)
         a_new = gain / (gain + alpha_c)
         return 0.5 * a + 0.5 * torch.clamp(a_new, _EPS, 1.0)
 
-    a = torch.full((len(fracs), 1), 0.5, dtype=torch.float32, device=dev)
+    a = torch.full((len(fracs), len(N_z)), 0.5, dtype=torch.float32,
+                   device=dev)
     for _ in range(iters):
         a = body(a)
     residual = torch.abs(body(a) - a).max()
@@ -676,6 +874,9 @@ def solve_contamination_classes(p: FGParams, contact: ContactModel,
                                 eta_adv: float = 1.0, eta_honest: float = 1.0,
                                 merge_rate=None,
                                 csol: ClassSolution | None = None,
+                                density: float | None = None,
+                                speed: float | None = None, t: float = 0.0,
+                                area_side: float | None = None,
                                 iters: int = 200, tol: float = 1e-6,
                                 strict: bool = False
                                 ) -> ContaminationSolution:
@@ -701,17 +902,13 @@ def solve_contamination_classes(p: FGParams, contact: ContactModel,
     Solved by the class solver's damped fixed-point iteration (each step
     maps ``x`` to ``m poi / (m poi + reset)``). With no adversarial class
     the answer is exactly zero, returned without iterating. A ``ZoneSet``
-    (``zones`` or ``p.zones``) raises ``NotImplementedError``: the
-    multi-zone slice ports it."""
+    (``zones`` or ``p.zones``, with ``density``, ``speed``, ``t`` and
+    ``area_side``) goes to the class solver: one column a zone."""
     fc = faults if faults is not None else getattr(p, "faults", None)
-    if zones is not None or p.zones is not None:
-        raise NotImplementedError(
-            "repro_torch's solve_contamination_classes solves a single "
-            "Replication Zone; ZoneSets come with the multi-zone slice "
-            "(ROADMAP queue 1, item 5)")
     if csol is None:
-        csol = solve_fixed_point_classes(p, contact, fc, iters=iters,
-                                         tol=tol, strict=strict)
+        csol = solve_fixed_point_classes(
+            p, contact, fc, zones, density=density, speed=speed, t=t,
+            area_side=area_side, iters=iters, tol=tol, strict=strict)
     dev = csol.a.device
     C, K = csol.a.shape
 

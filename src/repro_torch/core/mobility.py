@@ -15,7 +15,7 @@ speeds), so ``g = 2 r_tx E|v_rel| D``; a contact crosses a chord of the
 ``r_tx`` disc with a uniform impact parameter at ``E|v_rel|``.
 
 ``rwp`` and ``manhattan`` (the reference's other twins) come with their
-simulation models (ROADMAP queue 1, item 5); :func:`contact_model_for`
+simulation models (ROADMAP queue 1, item 5b); :func:`contact_model_for`
 raises for them.
 
 Device: the builders take ``device=None``, meaning ``cuda``; without a
@@ -133,7 +133,7 @@ def _not_ported(name: str):
     def builder(**_kwargs):
         raise NotImplementedError(
             f"the {name!r} contact model comes with the {name} mobility "
-            "model (ROADMAP queue 1, item 5); the port has 'rdm'")
+            "model (ROADMAP queue 1, item 5b); the port has 'rdm'")
     return builder
 
 

@@ -59,8 +59,18 @@ sample; their analytic twin is ``core.meanfield.
 solve_contamination_classes`` with ``core.dde.
 solve_contamination_transient``.
 
+With several Replication Zones (``cfg.zones``, a ``ZoneSet`` of up to 32
+discs, some drifting) each node's zone word has one bit a zone it lies in,
+the drifting centers folded into the area at each slot's time; a node's
+state drops when it leaves the union of zones, and both contact backends
+pair only nodes whose words share a bit. The per-zone traces
+(``availability_z``, ``stored_info_z``, ``n_in_rz_z``) carry a trailing
+zone axis; their analytic twin is ``core.meanfield.
+solve_fixed_point_multizone`` with ``core.dde.
+solve_observation_availability_multizone``.
+
 The port runs the paper's validation loop: ``rdm`` (or ``replay``)
-mobility at constant speed, a single static zone, any ``M``, with or
+mobility at constant speed, any ``ZoneSet``, any ``M``, with or
 without the protocol faults, learning (average or trimmed defenses) and
 the Byzantine attacks, on either contact backend: the dense O(N²)
 sweep, or the cell lists of ``repro_torch.sim.cells``
@@ -73,6 +83,7 @@ that will port it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from functools import partial
 from typing import Any, Sequence
@@ -92,7 +103,7 @@ from repro_torch.sim.mobility import get_mobility, replay_model
 from repro_torch.sim.state import init_sim_state
 
 __all__ = ["SimConfig", "SimOutputs", "BatchSimOutputs", "effective_zones",
-           "zone_churn", "dynamic_params", "stack_dynamic_params",
+           "zone_member", "zone_churn", "dynamic_params", "stack_dynamic_params",
            "simulate", "simulate_batch", "mobility_track", "check_overflow",
            "scan_carry_bytes"]
 
@@ -311,13 +322,11 @@ def _check_config(cfg: SimConfig) -> None:
                 f"SimConfig.{field} must be a {kind.__module__}."
                 f"{kind.__name__} (got {type(value).__name__})")
     later = None
-    zs = effective_zones(cfg)
     if cfg.mobility not in ("rdm", "replay"):
-        later = f"mobility={cfg.mobility!r} (the rwp/manhattan slice)"
+        later = (f"mobility={cfg.mobility!r} (the mobility slice, ROADMAP "
+                 "queue 1, item 5b)")
     elif cfg.speed_range is not None:
-        later = "speed_range (the rwp/manhattan mobility slice)"
-    elif zs.k != 1 or zs.moving:
-        later = "multi-zone or drifting ZoneSets (the multizone slice)"
+        later = "speed_range (the mobility slice, ROADMAP queue 1, item 5b)"
     if later is not None:
         on = " on the cell-list backend" if backend == "cells" else ""
         raise NotImplementedError(f"repro_torch does not run {later}{on} yet")
@@ -331,15 +340,40 @@ def _check_supported(p: FGParams, cfg: SimConfig) -> int:
     return m
 
 
-def _zone_member(pos, zs: ZoneSet):
-    """``(B, N, 1)`` membership of the single static zone: ``‖pos - c‖ <=
-    r`` with the norm's square as ``fma(dy, dy, dx*dx)`` — the reverse of
-    d²'s order, as jitted XLA computes ``jnp.linalg.norm`` here."""
-    cx, cy = (float(np.float32(v)) for v in zs.centers[0])
-    dx = pos[..., 0] - cx
-    dy = pos[..., 1] - cy
-    d = torch.sqrt(fma32(dy, dy, dx * dx))
-    return (d <= float(np.float32(zs.radii[0])))[..., None]
+@functools.lru_cache(maxsize=64)
+def _zone_tensors(zs: ZoneSet, device: str):
+    """A zone set's float32 centers, radii and drift (None when static) on
+    ``device``, made once: the slot loop copies nothing to the device."""
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    return (f32(zs.centers), f32(zs.radii),
+            f32(zs.drift) if zs.moving else None)
+
+
+def zone_member(pos, zs: ZoneSet, t_now: float = 0.0,
+                area_side: float | None = None):
+    """``(B, N, K)`` per-zone membership of the ``(B, N, 2)`` positions at
+    time ``t_now``: ``‖pos - c‖ <= r`` with the norm's square as
+    ``fma(dy, dy, dx*dx)`` — the reverse of d²'s order, as jitted XLA
+    computes ``jnp.linalg.norm`` here (an IEEE float32 square root, as on
+    either device).
+
+    Drifting centers fold ``c + u·t`` into ``[0, area_side]`` (specular
+    reflection off the area's walls): ``side - |side - (c + u·t) mod
+    2 side|``, with ``c + u·t`` as ``fma(u, t, c)``, as XLA contracts it in
+    the engine's step; static sets skip the fold."""
+    c, r, u = _zone_tensors(zs, str(pos.device))
+    if u is not None:
+        if area_side is None:
+            raise ValueError("a drifting ZoneSet needs area_side")
+        side = float(np.float32(area_side))
+        m = torch.remainder(fma32(u, float(np.float32(t_now)), c),
+                            float(np.float32(2.0 * area_side)))
+        c = side - torch.abs(side - m)
+    dx = pos[..., :, None, 0] - c[:, 0]
+    dy = pos[..., :, None, 1] - c[:, 1]
+    return torch.sqrt(fma32(dy, dy, dx * dx)) <= r
 
 
 def _mobility(cfg: SimConfig, positions, device):
@@ -429,11 +463,11 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
             cls1h_adv = torch.from_numpy(
                 faults.class_onehot(cfg.faults, cfg.n_nodes)).to(key.device)
 
-    def zone_word(pos):
-        return zone_words(_zone_member(pos, zs))
+    def zone_word(pos, t_now):
+        return zone_words(zone_member(pos, zs, t_now, cfg.area_side))
 
     mob, key = model.init(key, cfg)
-    state = init_sim_state(mob, rows(zone_word(mob.pos)), M=M, cfg=cfg,
+    state = init_sim_state(mob, rows(zone_word(mob.pos, 0.0)), M=M, cfg=cfg,
                            task=task)
     samples = []
     for slot in range(n_run):
@@ -455,7 +489,7 @@ def _run(key, p_dyn: dict, cfg: SimConfig, M: int, model, task=None, *,
 
         # ---- mobility and zone membership (once a seed), zone churn ----
         mob = model.step(k_mob1, k_mob2, state.mob, cfg)
-        zonew_seed = zone_word(mob.pos)
+        zonew_seed = zone_word(mob.pos, t_now)
         zonew = rows(zonew_seed)
         pos = rows(mob.pos)
         in_rz = zonew != 0

@@ -31,6 +31,7 @@ from repro.configs import fg_faults as rff
 from repro.configs import fg_paper as r_paper
 from repro.core import dde as r_dde
 from repro.core import meanfield as r_mf
+from repro.core.zones import ZoneSet as RZoneSet
 from repro.sim import faults as r_faults
 from repro_torch.configs import fg_adversarial as tfa
 from repro_torch.configs import fg_faults as tff
@@ -244,13 +245,25 @@ def test_fused_multiply_adds_bit_for_bit(name):
         _same_bits(tt.tau, rt.tau, f"M={M} tau")
 
 
-def test_zone_sets_raise():
-    zs = ZoneSet(centers=((60.0, 100.0), (140.0, 100.0)), radii=(45.0, 45.0))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_mf.solve_contamination_classes(P, CM, tfa.signflip(), zones=zs)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_mf.solve_contamination_classes(P.replace(zones=zs), CM,
-                                         tfa.signflip())
+def test_zone_sets_equal_repro():
+    """The configuration the single-zone port refused, ``signflip()``
+    across two zones (an attack-only configuration: the class solver
+    delegates to the multizone one), given as ``zones`` and as
+    ``p.zones``, equals ``repro``'s."""
+    kw = dict(centers=((60.0, 100.0), (140.0, 100.0)), radii=(45.0, 45.0))
+    zs, rzs = ZoneSet(**kw), RZoneSet(**kw)
+    geo = dict(density=t_paper.DENSITY, speed=1.0)
+    rp = r_paper.paper_params(lam=0.05, Lam=10.0, M=1)
+    want = r_mf.solve_contamination_classes(rp, CM_R, rfa.signflip(),
+                                            zones=rzs, **geo)
+    for got in (
+            t_mf.solve_contamination_classes(P, CM, tfa.signflip(),
+                                             zones=zs, **geo),
+            t_mf.solve_contamination_classes(P.replace(zones=zs), CM,
+                                             tfa.signflip(), **geo)):
+        assert got.x.shape == (2, 2)
+        for f in ("x", "x_mean", "p_adv", "m", "reset", "honest_n"):
+            _same_bits(getattr(got, f), getattr(want, f), f)
 
 
 def test_delegated_path_broadcasts_the_class_solution():

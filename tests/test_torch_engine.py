@@ -9,6 +9,8 @@
 (c) The port runs free on the CPU; without CUDA the default device raises;
     configurations outside this slice raise ``NotImplementedError``, and
     a ``faults`` that is not the port's ``FaultConfig`` ``ValueError``.
+(d) Two-zone configurations, on either backend, with faults and on the
+    Byzantine path, equal ``repro``'s runs on its positions.
 """
 
 import dataclasses
@@ -22,9 +24,12 @@ import torch
 
 import repro.sim.compute as rcompute
 import repro.sim.observations as robs
+from repro.configs import fg_faults as rff
+from repro.configs.fg_learn import logreg_task as r_logreg
 from repro.configs.fg_paper import paper_params as r_paper_params
 from repro.core.zones import ZoneSet as RZoneSet
 from repro.sim import SimConfig as RCfg
+from repro.sim import learn as rlearn
 from repro.sim import simulate as r_simulate
 from repro.sim.faults import FaultClass as RFaultClass
 from repro.sim.faults import FaultConfig as RFaultConfig
@@ -37,6 +42,7 @@ from repro_torch.configs.fg_paper import paper_params
 from repro_torch.core.zones import ZoneSet
 from repro_torch.sim import SimConfig, estimate_o_of_tau, simulate
 from repro_torch.sim.engine import mobility_track
+from repro_torch.sim import learn as tlearn
 from repro_torch.sim.faults import FaultClass, FaultConfig
 from repro_torch.sim.mobility import get_mobility
 from repro_torch.sim.state import (init_sim_state, state_from_numpy,
@@ -101,7 +107,7 @@ def test_zone_test_rounds_as_the_reversed_fma():
     """Nodes on the zone boundary: the port's membership equals the jitted
     ``norm(pos - c) <= r`` of ``repro``'s engine only with the square as
     ``fma(dy, dy, dx*dx)`` — the reverse of d²'s operand order."""
-    from repro_torch.sim.engine import _zone_member
+    from repro_torch.sim.engine import zone_member
     from repro_torch.core.zones import single_zone
 
     th = np.random.default_rng(1).uniform(0, 2 * np.pi, 50_000)
@@ -111,7 +117,7 @@ def test_zone_test_rounds_as_the_reversed_fma():
     want = np.asarray(jax.jit(
         lambda p, cc, r: jnp.linalg.norm(p - cc[0], axis=-1) <= r)(
             pos, np.full((1, 2), c), np.float32(5.0)))
-    got = _zone_member(torch.from_numpy(pos)[None],
+    got = zone_member(torch.from_numpy(pos)[None],
                        single_zone((100.0, 100.0), 5.0))[0, :, 0].numpy()
     np.testing.assert_array_equal(got, want)
     dx, dy = pos[:, 0] - c, pos[:, 1] - c
@@ -149,9 +155,9 @@ def test_state_carried_across_equals_port_init(m_count):
     fields = _repro_state_fields(RCfg(**GEOM), m_count, seed=2)
     carried = state_from_numpy(fields, "cpu")
     mob, _ = get_mobility("rdm").init(tr.PRNGKey(2)[None], cfg)
-    from repro_torch.sim.engine import _zone_member, effective_zones
+    from repro_torch.sim.engine import effective_zones, zone_member
     from repro_torch.kernels.contacts import zone_words
-    own = init_sim_state(mob, zone_words(_zone_member(mob.pos,
+    own = init_sim_state(mob, zone_words(zone_member(mob.pos,
                                                       effective_zones(cfg))),
                          M=m_count, cfg=cfg)
     for f in dataclasses.fields(own):
@@ -197,27 +203,13 @@ TWO_ZONES = ZoneSet(centers=((20.0, 20.0), (40.0, 40.0)), radii=(15.0, 15.0))
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(contact_backend="cells", zones=TWO_ZONES), NotImplementedError,
-     "cell-list"),
-    # an enabled fault configuration runs, but not across two zones
-    (dict(contact_backend="cells", faults=harsh(), zones=TWO_ZONES),
-     NotImplementedError, "multi-zone.*cell-list"),
-    (dict(mobility="rwp"), NotImplementedError, "rwp"),
-    (dict(speed_range=(0.5, 1.5)), NotImplementedError, "speed_range"),
+    (dict(mobility="rwp"), NotImplementedError, "rwp.*item 5b"),
+    (dict(speed_range=(0.5, 1.5)), NotImplementedError,
+     "speed_range.*item 5b"),
     # faults must be the port's own record: not an object, not repro's
     (dict(learn=logreg_task(), faults=object()), ValueError,
      "repro_torch.sim.faults.FaultConfig"),
-    # the Byzantine slice runs an adversarial configuration, but not
-    # across two zones
-    (dict(learn=logreg_task(), faults=FaultConfig(classes=(
-        FaultClass(frac=0.5),
-        FaultClass(frac=0.5, adv_mode="signflip", adv_scale=1.0))),
-        zones=TWO_ZONES),
-     NotImplementedError, "multi-zone"),
-    (dict(zones=TWO_ZONES), NotImplementedError, "multi-zone"),
-], ids=["change0-cell-list", "change1-cell-list", "change2-rwp",
-        "change3-speed_range", "change4-faults slice",
-        "change5-Byzantine slice", "change6-multi-zone"])
+], ids=["change2-rwp", "change3-speed_range", "change4-faults slice"])
 def test_configurations_outside_the_slice_raise(change, error, match):
     cfg = SimConfig(**{**GEOM, **change})
     with pytest.raises(error, match=match):
@@ -227,6 +219,77 @@ def test_configurations_outside_the_slice_raise(change, error, match):
             RFaultClass(frac=0.5), RFaultClass(frac=0.5, free_rider=True))))
         with pytest.raises(ValueError, match="FaultConfig"):
             simulate(paper_params(), cfg, device="cpu")
+
+
+R_TWO_ZONES = RZoneSet(centers=((20.0, 20.0), (40.0, 40.0)),
+                       radii=(15.0, 15.0))
+
+
+def _byzantine(config, klass):
+    return config(classes=(
+        klass(frac=0.5), klass(frac=0.5, adv_mode="signflip", adv_scale=1.0)))
+
+
+@pytest.mark.parametrize("case", ["cells", "cells-harsh", "byzantine",
+                                  "dense"])
+def test_two_zone_configurations_equal_repro(working_barrier, case):
+    """The two-zone configurations this port refused before the multi-zone
+    slice (dense, cells, cells under ``harsh()``, the Byzantine path) run
+    and equal ``repro``'s runs on its positions, bit for bit on every
+    protocol trace (learning traces within rtol 1e-5, as
+    ``tests/test_torch_learn.py``)."""
+    geom = dict(GEOM, n_slots=160)
+    r_kw, t_kw, task, faulted = {}, {}, None, False
+    if case.startswith("cells"):
+        r_kw["contact_backend"] = t_kw["contact_backend"] = "cells"
+    if case == "cells-harsh":
+        r_kw["faults"], t_kw["faults"], faulted = rff.harsh(), harsh(), True
+    if case == "byzantine":
+        r_kw["faults"] = _byzantine(RFaultConfig, RFaultClass)
+        t_kw["faults"] = _byzantine(FaultConfig, FaultClass)
+        r_kw["learn"], t_kw["learn"] = r_logreg(), logreg_task()
+        rtask = rlearn.make_task(r_kw["learn"])
+        task = tlearn.task_from_numpy(*(np.asarray(getattr(rtask, f)) for f in
+                                        ("theta0", "w_true", "x_test",
+                                         "y_test", "stream_key")))
+    rcfg = RCfg(**geom, zones=R_TWO_ZONES, **r_kw)
+    p_kw = dict(lam=0.3, M=1, Lam=4.0)
+    ref = r_simulate(r_paper_params(**p_kw), rcfg, seed=2)
+    track = np.asarray(_repro_track_faulted(jax.random.PRNGKey(2), rcfg)
+                       if faulted else
+                       _repro_track(jax.random.PRNGKey(2), rcfg))
+    out = simulate(paper_params(**p_kw),
+                   SimConfig(**geom, zones=TWO_ZONES, mobility="replay",
+                             **t_kw),
+                   seed=2, device="cpu", positions=track, task=task)
+    for f in TRACES:
+        want, got = getattr(ref, f), getattr(out, f)
+        assert got.dtype == want.dtype and got.shape == want.shape, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    assert out.n_in_rz_z.shape[-1] == 2 and ref.availability.max() > 0
+    if case == "byzantine":
+        np.testing.assert_array_equal(out.merge_stats, ref.merge_stats)
+        np.testing.assert_allclose(out.poisoned_frac, ref.poisoned_frac,
+                                   rtol=1e-5, atol=1e-6)
+    if case == "cells-harsh":
+        np.testing.assert_array_equal(out.fault_events, ref.fault_events)
+
+
+@partial(jax.jit, static_argnames=("cfg",))
+def _repro_track_faulted(key, cfg):
+    """``_repro_track`` with the fault layer's extra split a slot."""
+    model = rget("rdm")
+    mob, key = model.init(key, cfg)
+
+    def step(carry, _):
+        mob, key = carry
+        key, k1, k2, _, _ = jax.random.split(key, 5)
+        key = jax.random.split(key, 5)[0]
+        mob = model.step(k1, k2, mob, cfg)
+        return (mob, key), mob.pos
+
+    _, frames = jax.lax.scan(step, (mob, key), None, length=cfg.n_slots)
+    return jnp.concatenate([mob.pos[None], frames])
 
 
 def test_repro_zone_set_shape_is_kept():

@@ -57,6 +57,7 @@ from repro.configs import fg_faults as rff
 from repro.configs.fg_learn import logreg_task as r_logreg
 from repro.configs.fg_paper import paper_contact_model as r_contact
 from repro.configs.fg_paper import paper_params as r_paper_params
+from repro.core.zones import ZoneSet as RZoneSet
 from repro.core import dde as r_dde
 from repro.core import meanfield as r_mf
 from repro.sim import SimConfig as RCfg
@@ -78,7 +79,7 @@ from repro_torch.core.zones import ZoneSet
 from repro_torch.sim import SimConfig, simulate, sweep
 from repro_torch.sim import compute, faults
 from repro_torch.sim import learn as tlearn
-from repro_torch.sim.engine import _zone_member, effective_zones
+from repro_torch.sim.engine import effective_zones, zone_member
 from repro_torch.sim.engine import scan_carry_bytes
 from repro_torch.sim.mobility import get_mobility
 from repro_torch.kernels.contacts import zone_words
@@ -532,7 +533,7 @@ def test_state_carried_across_under_faults():
     assert "availw" in fields and "fault_events" in fields
     carried = state_from_numpy(fields, "cpu")
     own_mob, _ = get_mobility("rdm").init(tr.PRNGKey(2)[None], cfg)
-    own = init_sim_state(own_mob, zone_words(_zone_member(
+    own = init_sim_state(own_mob, zone_words(zone_member(
         own_mob.pos, effective_zones(cfg))), M=1, cfg=cfg)
     for name in ("availw", "fault_events", "inc", "partner"):
         assert torch.equal(getattr(carried, name), getattr(own, name)), name
@@ -860,15 +861,34 @@ def test_zipf_class_ranks_ordered():
     assert np.all(serves == 1.0)
 
 
-def test_class_solvers_refuse_zones():
-    zs = ZoneSet(centers=((60.0, 100.0), (140.0, 100.0)), radii=(45.0, 45.0))
-    p = paper_params(lam=0.2, M=1)
-    with pytest.raises(NotImplementedError, match="multi-zone"):
-        t_mf.solve_fixed_point_classes(p, CM_T, faults=tff.harsh(), zones=zs)
-    with pytest.raises(NotImplementedError, match="multi-zone"):
-        t_mf.solve_fixed_point_classes(p.replace(zones=zs), CM_T)
-    fake = dataclasses.replace(
-        t_mf.solve_fixed_point_classes(p, CM_T),
-        base=type("Multizone", (), {"R": None})())
-    with pytest.raises(NotImplementedError, match="multi-zone"):
-        t_dde.solve_observation_availability_classes(p, fake)
+def test_class_solvers_take_zones_as_repro():
+    """The configurations the single-zone port refused: ``harsh()`` across
+    two zones (the class solver's zone branch), the same zones on
+    ``p.zones`` with no faults (delegated to the multizone solver) and its
+    DDE, against ``repro``'s (``tests/test_torch_zones.py`` holds more
+    cases)."""
+    kw = dict(centers=((60.0, 100.0), (140.0, 100.0)), radii=(45.0, 45.0))
+    zs, rzs = ZoneSet(**kw), RZoneSet(**kw)
+    geo = dict(density=DENSITY, speed=1.0)
+    p, rp = paper_params(lam=0.2, M=1), r_paper_params(lam=0.2, M=1)
+    tc = t_mf.solve_fixed_point_classes(p, CM_T, faults=tff.harsh(),
+                                        zones=zs, **geo)
+    rc = r_mf.solve_fixed_point_classes(rp, CM_R, faults=rff.harsh(),
+                                        zones=rzs, **geo)
+    b = np.asarray(rc.b, np.float64)
+    steps = QUANTUM_STEPS * np.spacing(
+        ((b + 1.0 / b) / 2.0).astype(np.float32)) / b
+    for f in CLASS_FIELDS:
+        want, got = np.asarray(getattr(rc, f)), getattr(tc, f).numpy()
+        assert got.shape == want.shape and got.dtype == want.dtype, f
+        rtol = steps * (1.0 - want) if f in ("a", "a_serve") else steps
+        assert np.all(np.abs(got - want) <= rtol * np.abs(want) + 1e-30), f
+    td = t_mf.solve_fixed_point_classes(p.replace(zones=zs), CM_T, **geo)
+    rd = r_mf.solve_fixed_point_classes(rp.replace(zones=rzs), CM_R, **geo)
+    assert isinstance(td.base, t_mf.MultizoneSolution)
+    _same(td.a, rd.a, "delegated a")
+    o = t_dde.solve_observation_availability_classes(p, td)
+    ro = r_dde.solve_observation_availability_classes(rp, rd)
+    assert o.o.shape == ro.o.shape == (1, 2, 6001)
+    np.testing.assert_allclose(o.o.numpy(), np.asarray(ro.o), rtol=0,
+                               atol=1e-5)

@@ -372,11 +372,14 @@ def test_refusals():
     with pytest.raises(ValueError, match="model count"):
         sweep.run([ps[0], paper_params(lam=0.1, M=3)], cfg, [0],
                   device="cpu")
-    for bad in (dict(mobility="rwp"),
-                dict(zones=ZoneSet(centers=((50.0, 50.0), (150.0, 150.0)),
-                                   radii=(40.0, 40.0)))):
-        with pytest.raises(NotImplementedError):
-            sweep.run(ps, SimConfig(**GEOM, **bad), [0], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        sweep.run(ps, SimConfig(**GEOM, mobility="rwp"), [0], device="cpu")
+    # two zones are no longer refused: the sweep runs them, one trailing
+    # zone axis on the per-zone traces
+    two = SimConfig(**dict(GEOM, n_slots=16), zones=ZoneSet(
+        centers=((50.0, 50.0), (150.0, 150.0)), radii=(40.0, 40.0)))
+    got = sweep.run(ps, two, [0], device="cpu")
+    assert got.availability_z.shape[-1] == got.n_in_rz_z.shape[-1] == 2
     # a duck-typed fault record is not the port's FaultConfig
     duck = dataclasses.make_dataclass("F", [("enabled", bool, True)])()
     with pytest.raises(ValueError, match="repro_torch.sim.faults.FaultConfig"):
