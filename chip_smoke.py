@@ -77,7 +77,7 @@ Phases (any failure ends the run with a non-zero exit code):
     equal bit for bit, one cell-kernel launch per slot;
 11. cells-vs-dense — the N = 800 point (256 slots) on the card with
     ``contact_backend="cells"`` and ``"dense"``: every trace bit for bit;
-12. cells-run — the convergence figure's N = 12800 point (1000 slots,
+12. cells-run — the convergence figure's N = 12800 point (496 slots,
     ``auto`` = cells) free on the card: no overflow, population and
     availability sane, the kernel held against its plain version on the
     last slot's planes and timed beside its bound; then a 16-slot profile.
@@ -236,22 +236,57 @@ Phases (any failure ends the run with a non-zero exit code):
     held to its plain version on the sweep's last inputs; then the
     multizone fixed point and DDE on the card against the CPU's (within
     ``ZONE_RTOL`` and ``DDE_ATOL``), with wall times.
+32. mobility-replay — the other mobility models on the card against the
+    CPU, every trace bit for bit (rwp and manhattan call no
+    transcendental, so free runs agree), each run's contact kernel held to
+    its plain version on its last inputs: (a) rwp with a 60 s pause, dense
+    N = 200, 304 slots; (b) manhattan, dense N = 200, 304 slots; (c)
+    manhattan on the cell lists, N = 1024 at the paper density, 160 slots,
+    ``nbr_overflow`` 0; (d) manhattan with ``harsh()`` and logreg learning,
+    N = 200, 160 slots: protocol traces, fault fields and ``merge_stats``
+    bit for bit, learning traces within ``LEARN_TOL``, every row merge held
+    to its plain version; (f) rdm with ``speed_range`` (0.1, 1.9) replaying
+    the CPU's positions (its init splits the key four ways), 304 slots;
+    then (e) a B = 4 rwp sweep (160 slots) whose rows (0, 0) and (1, 1)
+    equal B = 1 card runs. After the second process has ended, profiles of
+    an rwp (60 s pause) and a manhattan slot beside the paper point's, and
+    mobility-kernels: ``pairwise_contacts`` on those runs' last slot,
+    ``cell_close_words`` on a manhattan N = 1024 run's last planes and
+    ``gossip_merge_rows`` on (d)'s merges, each held to and timed beside
+    its plain version and bound.
+33. mobility-check — (a) tests/test_sim_mobility.py's five contact-rate
+    probes (``measure_contact_rate``, N = 200: rdm, rwp, manhattan, rwp
+    with a 60 s pause, rdm with ``speed_range``) on the card, one
+    ``pairwise_contacts`` launch a slot, each within its tolerance of its
+    twin built on the card, the paused rwp more than 0.2 from the no-pause
+    twin, the ``speed_range`` rate nearer the corrected twin; rwp's and
+    manhattan's rates equal the port's CPU runs bit for bit (a worker
+    process of the third one); (b) examples/simulate_vs_meanfield.py
+    --fast for rwp and manhattan (in this process, after 27's sweep), each
+    one B = 2 sweep (seeds 0, 1) at the paper point, 2000 slots (cut from
+    4000 for time) sampled every 16, second half: availability within 15%
+    of the fixed point on the twin (on the card) and ``a_mf >= a_sim -
+    0.02``; busy, nodes in the RZ and slots/s printed; the kernel held to
+    its plain version on each sweep's last inputs.
 
 Order: 1-4, 9, 13 and 25 (the kernel checks), the analytics of 7 and 27;
 then three processes on the card at once, all bound by the host's launch
-rate: this one runs the long sweeps of 7 (mf-check) and 27 (faults-check),
-a second one (spawned, ``side_phases``) the phases that only check (the
-sweep phases, 5, 10, 6, 26, 11, 28, 30, 14's replays, 18 and 22), with
-every replay's CPU run queued at its start in a worker process of its own
-(spawned, at most 4 threads), and a third one (spawned, ``twin_phases``)
-29 and 31. When the other two have ended, on a quiet card, this one
-times: the kernels on 7's and 27's last inputs and their profiles, then
-8, 28's and 30's profiles, 12, 15, 16, 17, 19, 20, 21, 23 and 24.
+rate: this one runs the long sweeps of 7 (mf-check), 27 (faults-check)
+and 33 (mobility-check's two), a second one (spawned, ``side_phases``)
+the phases that only check (the sweep phases, 5, 10, 6, 26, 11, 28, 30,
+32, 14's replays, 18 and 22), with every replay's CPU run queued at its
+start in a worker process of its own (spawned, at most 4 threads), and a
+third one (spawned, ``twin_phases``) 29, 31 and 33's probes (their CPU
+sides in a worker of its own, one thread). When the other two have
+ended, on a quiet card, this one times: the kernels on 7's and 27's last
+inputs and their profiles, then 8, 28's, 30's and 32's profiles, 12, 15,
+16, 17, 19, 20, 21, 23 and 24.
 
 The run lengths above are cut to keep the script near half its 1200 s
 limit on a slow host (the simulator is bound by the host's launch rate):
 the reference check's 12000 slots to 7992, where the stored information
-is still within its threshold (PERF.md §7 lists every cut).
+is still within its threshold, and 33's example from 4000 slots to 2000
+(PERF.md §7 lists every cut).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -281,8 +316,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.configs import get_arch_config  # noqa: E402
 from repro_torch.configs.base import reduced  # noqa: E402
-from repro_torch.configs.fg_paper import (DENSITY,  # noqa: E402
-                                          SPEED_DEFAULT,
+from repro_torch.configs.fg_paper import (AREA_SIDE,  # noqa: E402
+                                          DENSITY, R_TX, SPEED_DEFAULT,
                                           paper_contact_model,
                                           paper_params)
 from repro_torch.configs.fg_adversarial import (  # noqa: E402
@@ -323,7 +358,10 @@ from repro_torch.sim.compute import pack_mask  # noqa: E402
 from repro_torch.core.zones import ZoneSet  # noqa: E402
 from repro_torch.sim.engine import (SimConfig, effective_zones,  # noqa: E402
                                     mobility_track, simulate, zone_member)
-from repro_torch.sim.mobility import get_mobility  # noqa: E402
+from repro_torch.core.mobility import contact_model_for  # noqa: E402
+from repro_torch.sim import mobility as sim_mobility  # noqa: E402
+from repro_torch.sim.mobility import (get_mobility,  # noqa: E402
+                                      measure_contact_rate)
 from repro_torch.tree import tree_items, tree_map  # noqa: E402
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s,
@@ -1761,10 +1799,11 @@ def cells_vs_dense(seed: int = 0, n_slots: int = 256) -> None:
         f"busy={float(runs['cells'].busy_frac.mean()):.6f}"))
 
 
-def cells_run(seed: int = 0, n_slots: int = 1000) -> dict:
+def cells_run(seed: int = 0, n_slots: int = 496) -> dict:
     """The N = 12800 point of the convergence figure, free on the card on
     the cells backend (``auto``); the cell kernel is then held against its
-    plain version on the run's last-slot planes and both are timed."""
+    plain version on the run's last-slot planes and both are timed. 496
+    slots (1000 until the mobility phases: cut for time)."""
     p, cfg = scaled_point(12800, n_slots)
     grid = sim_cells.make_grid(cfg)
     with Recorder("cell_close_words", keep=1, module=sim_cells) as rec:
@@ -1879,6 +1918,22 @@ def faults_kernel() -> int:
     return worst
 
 
+def kernel_on_last(rec, cells_path: bool, what: str) -> int:
+    """The path's contact kernel against its plain version on the last
+    recorded inputs, bit for bit; returns the max abs difference."""
+    (args, kw), = rec.calls
+    if cells_path:
+        got, want = ([kc.cell_close_words(*args, **kw)],
+                     [kc.cell_close_words_ref(*args, **kw)])
+    else:
+        got = kc.pairwise_contacts(*args, **kw)
+        want = kc.pairwise_contacts_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: kernel != plain on the last inputs")
+    return max_abs_err(got, want)
+
+
 def faults_replay(refs: dict, sweep_slots: int = 200) -> dict:
     """Card runs replaying the CPU's positions under ``harsh()``, bit for
     bit on every trace and fault field: dense N = 200 (304 slots) and the
@@ -1907,20 +1962,8 @@ def faults_replay(refs: dict, sweep_slots: int = 200) -> dict:
                     TRACES + FAULT_FIELDS + extra)
         if not np.all(gpu.fault_events[-1] > 0):
             raise AssertionError(f"{kind}: events {gpu.fault_events[-1]}")
-        (args, kw), = rec.calls
-        if per_slot is CELLS_ONLY:
-            got, want = (kc.cell_close_words(*args, **kw),
-                         kc.cell_close_words_ref(*args, **kw))
-            got, want = [got], [want]
-        else:
-            got = kc.pairwise_contacts(*args, **kw)
-            want = kc.pairwise_contacts_ref(*args, **kw)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{kind}: {name} != plain on the run's "
-                                 f"last inputs")
-        out[kind] = dict(launches=launches[name],
-                         max_abs_err=max_abs_err(got, want))
+        out[kind] = dict(launches=launches[name], max_abs_err=kernel_on_last(
+            rec, per_slot is CELLS_ONLY, kind))
         lines.append(
             f"{kind} N={cfg.n_nodes} {slots_run(cfg)} slots: every trace and "
             f"fault field bit for bit, fault_events {gpu.fault_events[-1].tolist()}"
@@ -2532,18 +2575,7 @@ def zones_replay(refs: dict, sweep_slots: int = 160) -> dict:
         if gpu.n_in_rz_z.shape[-1] != k_zones or \
                 not np.all(gpu.n_in_rz_z.max(axis=0) > 0):
             raise AssertionError(f"{kind}: zones {gpu.n_in_rz_z.max(axis=0)}")
-        (args, kw), = rec.calls
-        if cells_path:
-            got, want = ([kc.cell_close_words(*args, **kw)],
-                         [kc.cell_close_words_ref(*args, **kw)])
-        else:
-            got = kc.pairwise_contacts(*args, **kw)
-            want = kc.pairwise_contacts_ref(*args, **kw)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{kind}: {name} != plain on the run's "
-                                 f"last inputs")
-        err = max_abs_err(got, want)
+        err = kernel_on_last(rec, cells_path, kind)
         line = (f"{kind} K={k_zones} N={cfg.n_nodes} {slots_run(cfg)} "
                 f"slots: every trace bit for bit, final n_in_rz_z "
                 f"{gpu.n_in_rz_z[-1].tolist()}, {name} launches "
@@ -2642,13 +2674,7 @@ def zones_check() -> dict:
     n_slots = slots_run(ZCHECK_CFG)
     if launches != per_run(DENSE_ONLY, n_slots):
         raise AssertionError(f"zones-check launches {launches}")
-    (args, kw), = rec.calls
-    got, want = (kc.pairwise_contacts(*args, **kw),
-                 kc.pairwise_contacts_ref(*args, **kw))
-    torch.cuda.synchronize()
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("zones-check: kernel != plain on the sweep's "
-                             "last inputs")
+    err = kernel_on_last(rec, False, "zones-check")
     a_seed = np.asarray(summ.stats["availability_z"])[0]      # (R, M, K)
     a_sim = a_seed.mean(axis=(0, 1))
     errs = np.abs(a_mf - a_sim) / np.maximum(a_sim, 1e-9)
@@ -2679,8 +2705,7 @@ def zones_check() -> dict:
         f"max abs diff {o_abs:.3e} (atol {DDE_ATOL}); wall on the card: "
         f"fixed point {card['t_fp']:.3f}s, dde {card['t_dde']:.3f}s; on the "
         f"cpu {cpu['t_fp']:.3f}s, {cpu['t_dde']:.3f}s"))
-    return dict(launches=launches["pairwise_contacts"],
-                max_abs_err=max_abs_err(got, want))
+    return dict(launches=launches["pairwise_contacts"], max_abs_err=err)
 
 
 def zone_profiles() -> None:
@@ -2693,10 +2718,319 @@ def zone_profiles() -> None:
 
 
 def twin_phases(start: float) -> tuple:
-    """The third process on the card: ``contam_twin``, then
-    ``zones_check``."""
-    contam = contam_twin(start)
-    return contam, zones_check()
+    """The third process on the card: ``contam_twin``, ``zones_check``,
+    then ``contact_rates`` (mobility-check's probes), whose CPU sides run
+    meanwhile in a worker process of this one (spawned, one thread)."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_rates = {label: pool.submit(probe_rate_cpu, label)
+                     for label in MOB_EXACT}
+        contam = contam_twin(start)
+        zcheck = zones_check()
+        return contam, zcheck, contact_rates(cpu_rates)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+# ------------------------------------------------------------- mobility
+
+#: tests/test_sim_mobility.py's contact-rate probes (N = 200): label ->
+#: (model, SimConfig overrides, seed, slots, tolerance against the twin,
+#: ``repro``'s rate on the CPU with JAX 0.9.0)
+MOB_PROBES = {
+    "rdm": ("rdm", {}, 0, 3000, 0.12, 0.061053),
+    "rwp": ("rwp", {}, 0, 3000, 0.18, 0.082733),
+    "manhattan": ("manhattan", {}, 0, 3000, 0.18, 0.089987),
+    "rwp-pause60": ("rwp", dict(pause_s=60.0), 1, 4000, 0.2, 0.060900),
+    "rdm-speed_range": ("rdm", dict(speed_range=(0.1, 1.9)), 0, 3000, 0.12,
+                        0.071227),
+}
+#: The probes without a transcendental on their path: card == CPU exactly
+MOB_EXACT = ("rwp", "manhattan", "rwp-pause60")
+#: examples/simulate_vs_meanfield.py --fast at the paper point, one B = 2
+#: sweep a model (seeds 0, 1), cut from 4000 slots to 2000 for time
+#: (PERF.md §7), sampled every 16, second half; availability within 15%
+#: of the fixed point on the twin and a_mf >= a_sim - 0.02
+#: (tests/test_sim_vs_meanfield.py's availability thresholds)
+MOB_CHECK_SLOTS = 2000
+MOB_CHECK_SEEDS = (0, 1)
+MOB_CHECK_TOL, MOB_CHECK_SLACK = 0.15, 0.02
+#: ``repro``'s example at 4000 slots (CPU, JAX 0.9.0): a_sim, a_mf
+MOB_CHECK_REF = {"rwp": (0.9515, 0.9640), "manhattan": (0.9286, 0.9637)}
+#: The mobility replays: kind -> the kernel counts of a slot
+MOB_REPLAYS = {"mob-rwp": DENSE_ONLY, "mob-manhattan": DENSE_ONLY,
+               "mob-cells": CELLS_ONLY,
+               "mob-learn": dict(DENSE_ONLY, gossip_merge_rows=1),
+               "mob-speed_range": DENSE_ONLY}
+
+
+def probe_config(label: str) -> tuple:
+    """``(model, cfg, seed, slots)`` of a contact-rate probe."""
+    name, kw, seed, slots, _, _ = MOB_PROBES[label]
+    return name, SimConfig(n_nodes=200, **kw), seed, slots
+
+
+def probe_twin(label: str, device=None):
+    """The probe's analytic twin at the paper geometry (the reference test's
+    ``GEOM``), with its pause or speed range."""
+    name, kw, _, _, _, _ = MOB_PROBES[label]
+    return contact_model_for(name, speed=SPEED_DEFAULT, r_tx=R_TX,
+                             density=DENSITY, street_spacing=25.0,
+                             area_side=AREA_SIDE, device=device, **kw)
+
+
+def probe_rate_cpu(label: str) -> tuple:
+    """A probe run by the port on the CPU, in a worker process: the rate
+    and the wall seconds."""
+    torch.set_num_threads(1)
+    name, cfg, seed, slots = probe_config(label)
+    t = time.perf_counter()
+    rate = measure_contact_rate(seed, name=name, cfg=cfg, n_slots=slots,
+                                device="cpu")
+    return rate, time.perf_counter() - t
+
+
+def mobility_replay(refs: dict, sweep_slots: int = 160) -> dict:
+    """The other mobility models on the card against the CPU, bit for bit
+    on every trace: (a) rwp with a 60 s pause, dense N = 200, 304 slots,
+    free; (b) manhattan, dense N = 200, 304 slots, free; (c) manhattan on
+    the cell lists, N = 1024 at the paper density, 160 slots, free,
+    ``nbr_overflow`` 0; (d) manhattan with ``harsh()`` and logreg learning,
+    N = 200, 160 slots, free: protocol traces, fault fields and
+    ``merge_stats`` bit for bit, the learning traces within ``LEARN_TOL``,
+    every row merge held to its plain version; (f) rdm with ``speed_range``
+    (0.1, 1.9), replaying the CPU's positions (its init splits the key four
+    ways), 304 slots. Each run's contact kernel held to its plain version
+    on its last inputs. Then (e) a B = 4 rwp sweep whose rows (0, 0) and
+    (1, 1) equal B = 1 card runs."""
+    out, lines = {}, []
+    for kind, per_slot in MOB_REPLAYS.items():
+        p, cfg, task = replay_case(kind)
+        cpu, track, t_cpu = refs[kind].result()
+        cells_path = per_slot is CELLS_ONLY
+        name = "cell_close_words" if cells_path else "pairwise_contacts"
+        module = sim_cells if cells_path else sim_contacts
+        replayed = kind == "mob-speed_range"
+        with Recorder(name, keep=1, module=module) as rec, \
+                Recorder("gossip_merge_rows") as rec_m:
+            reset_counts()
+            t = time.perf_counter()
+            if replayed:
+                gpu = simulate(p, dataclasses.replace(cfg, mobility="replay"),
+                               seed=0, positions=track, task=task)
+            else:
+                gpu = simulate(p, cfg, seed=0, task=task)
+            t_gpu = time.perf_counter() - t
+            launches = counts()
+        if launches != per_run(per_slot, slots_run(cfg)):
+            raise AssertionError(f"{kind} launches {launches}")
+        fields = TRACES + (("nbr_overflow",) if cells_path else ())
+        if cfg.learn is not None:
+            fields += FAULT_FIELDS + ("merge_stats",)
+            for k in LEARN_TOL:
+                close(getattr(gpu, k), getattr(cpu, k), *LEARN_TOL[k],
+                      f"{kind} {k}")
+        same_traces(cpu, gpu, f"{kind}: card != CPU", fields)
+        if cells_path and int(gpu.nbr_overflow.max()) != 0:
+            raise AssertionError(f"{kind}: nbr_overflow "
+                                 f"{gpu.nbr_overflow.max()}")
+        err = kernel_on_last(rec, cells_path, kind)
+        line = (f"{kind} ({cfg.mobility if not replayed else 'rdm replayed'}"
+                f") N={cfg.n_nodes} {slots_run(cfg)} slots "
+                f"{'replayed' if replayed else 'free'}: every trace bit for "
+                f"bit, mean n_in_rz {float(gpu.n_in_rz.mean()):.2f}, {name} "
+                f"launches {launches[name]}, == plain on the last inputs")
+        if cells_path:
+            line += f", nbr_overflow {int(gpu.nbr_overflow.max())}"
+        if cfg.learn is not None:
+            merged, m_err = held_to_plain(rec_m, gm.gossip_merge_rows,
+                                          gm.gossip_merge_rows_ref)
+            err = max(err, m_err)
+            line += (f", gossip_merge_rows launches "
+                     f"{launches['gossip_merge_rows']} == plain on the last "
+                     f"{len(rec_m.calls)} merges ({merged} rows), "
+                     f"fault_events {gpu.fault_events[-1].tolist()}")
+        out[kind] = dict(launches=launches, max_abs_err=err)
+        lines.append(line + f"; cpu {t_cpu:.1f}s (worker), gpu {t_gpu:.1f}s")
+
+    ps = [paper_params(lam=lam, M=1) for lam in FAULT_SWEEP_LAMS]
+    cfg = SimConfig(n_slots=sweep_slots, mobility="rwp")
+    with Recorder("pairwise_contacts", keep=1, module=sim_contacts) as rec:
+        reset_counts()
+        t = time.perf_counter()
+        batch = sweep.run(ps, cfg, SWEEP_SEEDS)
+        wall = time.perf_counter() - t
+        launches = counts()
+    if launches != per_run(DENSE_ONLY, slots_run(cfg)):
+        raise AssertionError(f"mobility-replay sweep launches {launches}")
+    err = kernel_on_last(rec, False, "mobility-replay sweep")
+    out["sweep"] = dict(launches=launches, max_abs_err=err)
+    for i, j in ((0, 0), (1, 1)):
+        one = simulate(ps[i], cfg, seed=SWEEP_SEEDS[j])
+        same_rows(batch, i, j, one, "mobility-replay sweep", SWEEP_TRACES)
+    lines.append(
+        f"rwp sweep lam {FAULT_SWEEP_LAMS} x seeds {SWEEP_SEEDS} "
+        f"(B={len(ps) * len(SWEEP_SEEDS)}), {slots_run(cfg)} slots: rows "
+        f"(0, 0) and (1, 1) equal B=1 card runs bit for bit on every trace; "
+        f"launches {launches['pairwise_contacts']}, == plain on the last "
+        f"inputs; sweep {wall:.1f}s")
+    phase("mobility-replay", "; ".join(lines))
+    return out
+
+
+def contact_rates(cpu_rates: dict) -> dict:
+    """The five probes on the card, through ``pairwise_contacts`` (one
+    launch a slot and one for the initial words), each within its
+    tolerance of its twin built on the card, the kernel held to its plain
+    version on each probe's last inputs; the paused rwp more than 0.2
+    from the no-pause twin, the ``speed_range`` rate nearer the corrected
+    twin than the constant-speed one; rwp's and manhattan's rates equal
+    the port's CPU runs bit for bit."""
+    rates, launches, err, lines = {}, 0, 0, []
+    for label, (_, _, _, _, tol, ref) in MOB_PROBES.items():
+        name, cfg, seed, slots = probe_config(label)
+        with Recorder("pairwise_contacts", keep=1, module=sim_mobility) as rec:
+            reset_counts()
+            t = time.perf_counter()
+            rate = measure_contact_rate(seed, name=name, cfg=cfg,
+                                        n_slots=slots)
+            g_sim = float(rate)                       # synchronises
+            wall = time.perf_counter() - t
+            n = counts()["pairwise_contacts"]
+        if n != slots + 1 or rate.device.type != "cuda":
+            raise AssertionError(f"{label}: {n} launches for {slots} slots")
+        err = max(err, kernel_on_last(rec, False, f"probe {label}"))
+        launches += n
+        g_twin = float(probe_twin(label, "cuda").g)
+        rel = abs(g_sim - g_twin) / g_twin
+        rates[label] = g_sim
+        line = (f"{label}: g_sim {g_sim:.6f} (repro {ref:.6f}) twin "
+                f"{g_twin:.6f} rel err {rel:.4f} (tol {tol}), {n} launches "
+                f"for {slots} slots, {slots / wall:.0f} slots/s")
+        if label in cpu_rates:
+            cpu, t_cpu = cpu_rates[label].result()
+            if not torch.equal(rate.cpu(), cpu):
+                raise AssertionError(f"{label}: card {g_sim!r} != cpu "
+                                     f"{float(cpu)!r}")
+            line += f", == the CPU's bit for bit (cpu {t_cpu:.0f}s, worker)"
+        if rel >= tol:
+            raise AssertionError(f"mobility-check {line}")
+        lines.append(line)
+    g_nopause = float(probe_twin("rwp", "cuda").g)
+    off = abs(rates["rwp-pause60"] - g_nopause) / g_nopause
+    g_const = float(probe_twin("rdm", "cuda").g)
+    g_corr = float(probe_twin("rdm-speed_range", "cuda").g)
+    sr = rates["rdm-speed_range"]
+    if off <= 0.2 or not abs(sr - g_corr) < abs(sr - g_const):
+        raise AssertionError(f"mobility-check: paused rwp {off:.4f} from the "
+                             f"no-pause twin; speed_range {sr} vs corrected "
+                             f"{g_corr}, constant {g_const}")
+    lines.append(f"paused rwp {off:.4f} from the no-pause twin (> 0.2); "
+                 f"speed_range rate {abs(sr - g_corr):.6f} from the corrected "
+                 f"twin, {abs(sr - g_const):.6f} from the constant-speed one")
+    phase("mobility-check", "contact rates on the card: " + "; ".join(lines))
+    return dict(launches=launches, max_abs_err=err)
+
+
+def mobility_sweeps() -> dict:
+    """examples/simulate_vs_meanfield.py --fast for rwp and manhattan: one
+    B = 2 sweep a model (seeds 0, 1), the paper point, ``MOB_CHECK_SLOTS``
+    slots sampled every 16, ``reduce="mean"`` over the second half,
+    availability within 15% of ``solve_fixed_point`` on the model's twin
+    (solved on the card) and ``a_mf >= a_sim - 0.02``; busy, nodes in the
+    RZ and slots/s printed; the contact kernel held to its plain version on
+    each sweep's last inputs. In the main process, after faults-check: it
+    waits there for the other two processes anyway."""
+    launches, err = 0, 0
+    p = paper_params(lam=0.05, M=1)
+    for mob in ("rwp", "manhattan"):
+        cfg = SimConfig(n_slots=MOB_CHECK_SLOTS, sample_every=16,
+                        mobility=mob)
+        t = time.perf_counter()
+        sol = solve_fixed_point(p, paper_contact_model(mobility=mob),
+                                strict=True)
+        a_mf, b_mf = float(sol.a), float(sol.b)
+        t_fp = time.perf_counter() - t
+        with Recorder("pairwise_contacts", keep=1,
+                      module=sim_contacts) as rec:
+            reset_counts()
+            t = time.perf_counter()
+            summ = sweep.run([p], cfg, MOB_CHECK_SEEDS, reduce="mean",
+                             warmup_frac=0.5)
+            wall = time.perf_counter() - t
+            n = counts()
+        n_slots = slots_run(cfg)
+        if n != per_run(DENSE_ONLY, n_slots):
+            raise AssertionError(f"mobility-check {mob} launches {n}")
+        err = max(err, kernel_on_last(rec, False, f"mobility-check {mob}"))
+        launches += n["pairwise_contacts"]
+        st = {k: np.asarray(summ.stats[k])[0] for k in
+              ("availability", "busy_frac", "n_in_rz")}
+        a_seed = st["availability"][:, 0]
+        a_sim = float(a_seed.mean())
+        rel = abs(a_mf - a_sim) / a_sim
+        b = len(MOB_CHECK_SEEDS)
+        line = (f"{mob}, paper point, B={b} N={cfg.n_nodes} {n_slots} slots, "
+                f"second half: a_sim {a_sim:.6f} (seeds "
+                f"{[round(float(v), 6) for v in a_seed]}) a_mf {a_mf:.6f} "
+                f"rel err {rel:.4f}; busy sim {float(st['busy_frac'].mean()):.6f}"
+                f" mf {b_mf:.6f}; nodes in RZ "
+                f"{float(st['n_in_rz'].mean()):.2f} (p.N {p.N:.2f}); repro at "
+                f"4000 slots a_sim {MOB_CHECK_REF[mob][0]} a_mf "
+                f"{MOB_CHECK_REF[mob][1]}; slots/s={n_slots / wall:.1f} "
+                f"run-slots/s={b * n_slots / wall:.1f}; fixed point on the "
+                f"card {t_fp:.3f}s; launches {n['pairwise_contacts']}, == "
+                f"plain on the last inputs")
+        if rel >= MOB_CHECK_TOL or a_mf < a_sim - MOB_CHECK_SLACK:
+            raise AssertionError(f"mobility-check: beyond {MOB_CHECK_TOL} or "
+                                 f"a_mf < a_sim - {MOB_CHECK_SLACK}; {line}")
+        phase("mobility-check", line + f" (within {MOB_CHECK_TOL}, a_mf >= "
+                                       f"a_sim - {MOB_CHECK_SLACK})")
+    return dict(launches=launches, max_abs_err=err)
+
+
+def mobility_profiles() -> None:
+    """Kernels and device time a slot of an rwp and a manhattan run beside
+    the paper point's (``zone_profiles``; B = 1, 32 slots each); then, on
+    a quiet card, each kernel of the mobility paths timed on its new
+    inputs beside its plain version and bound: ``pairwise_contacts`` on
+    the profiled runs' last slot (paused nodes; nodes on street lines),
+    ``cell_close_words`` on a manhattan run's last planes at N = 1024
+    (32 slots) and ``gossip_merge_rows`` on the merges of replay (d)'s
+    configuration (160 slots)."""
+    p = paper_params(lam=0.05, M=1)
+    lines = []
+    for mob, kw in (("rwp", dict(pause_s=60.0)), ("manhattan", {})):
+        cfg = SimConfig(n_slots=32, mobility=mob, **kw)
+        label = mob + ("-pause60" if kw else "")
+        with Recorder("pairwise_contacts", keep=1, module=sim_contacts) as rec:
+            profile_slots(label, p, cfg, n_slots=32)
+        (args, _), = rec.calls
+        k = time_kernel_args(args, args[5], f"{label}'s last slot")
+        lines.append(f"pairwise_contacts on {k['on']}: "
+                     f"kernel_us={1e3 * k['ms']:.3f} "
+                     f"bound_us={1e3 * k['bound_ms']:.5f} ({k['bound_by']}) "
+                     f"plain_us={1e3 * k['plain_ms']:.3f}")
+    p_cells, cfg = scaled_point(1024, 32)
+    cfg = dataclasses.replace(cfg, mobility="manhattan",
+                              contact_backend="cells")
+    with Recorder("cell_close_words", keep=1, module=sim_cells) as rec:
+        simulate(p_cells, cfg)
+    k = time_cell_kernel(*rec.calls[-1], sim_cells.make_grid(cfg))
+    lines.append(f"cell_close_words on manhattan's {k['on']}: "
+                 f"kernel_us={1e3 * k['ms']:.3f} "
+                 f"bound_us={1e3 * k['bound_ms']:.5f} ({k['bound_by']}) "
+                 f"plain_us={1e3 * k['plain_ms']:.3f}")
+    p_learn, cfg, task = replay_case("mob-learn")
+    with Recorder("gossip_merge_rows") as rec:
+        simulate(p_learn, cfg, task=task)
+    merged = held_on_run_inputs(
+        rec, gm.gossip_merge_rows, gm.gossip_merge_rows_ref, lerp_rows,
+        lambda n, d, sel: merge_bound_ms(n, d, sel, scaled=False))
+    lines.append(f"gossip_merge_rows under manhattan + harsh(): "
+                 f"{merge_line(merged)}")
+    phase("mobility-kernels", "; ".join(lines))
 
 
 # ------------------------------------------------------- the gossip round
@@ -3893,13 +4227,26 @@ def replay_case(kind: str) -> tuple:
     if kind == "zones-32":
         return (paper_params(lam=0.05, M=1),
                 SimConfig(n_slots=160, zones=grid_zones()), None)
+    if kind in ("mob-rwp", "mob-manhattan", "mob-speed_range"):
+        kw = {"mob-rwp": dict(mobility="rwp", pause_s=60.0),
+              "mob-manhattan": dict(mobility="manhattan"),
+              "mob-speed_range": dict(speed_range=(0.1, 1.9))}[kind]
+        return paper_params(lam=0.05, M=1), SimConfig(n_slots=304, **kw), None
+    if kind == "mob-learn":
+        lc = logreg_task()
+        return (paper_params(**LEARN_PARAMS),
+                SimConfig(n_slots=160, mobility="manhattan", faults=harsh(),
+                          learn=lc), learning.make_task(lc, "cpu"))
     if kind == "zones-learn":
         lc = logreg_task()
         return (paper_params(**LEARN_PARAMS),
                 SimConfig(n_slots=160, faults=harsh(), learn=lc,
                           zones=TWO_ZONES), learning.make_task(lc, "cpu"))
     p, cfg = scaled_point(1024, {"cells-replay": 500, "faults-cells": 304,
-                                 "zones-cells": 160}[kind])
+                                 "zones-cells": 160, "mob-cells": 160}[kind])
+    if kind == "mob-cells":
+        cfg = dataclasses.replace(cfg, mobility="manhattan",
+                                  contact_backend="cells")
     if kind == "faults-cells":
         cfg = dataclasses.replace(cfg, faults=harsh())
     if kind == "zones-cells":
@@ -3909,7 +4256,7 @@ def replay_case(kind: str) -> tuple:
 
 #: The replay phases, in the order the script reaches them.
 REPLAYS = ("replay", "cells-replay", "logreg", "mlp", "faults-dense",
-           "faults-cells", "attack") + tuple(ZONE_REPLAYS)
+           "faults-cells", "attack") + tuple(ZONE_REPLAYS) + tuple(MOB_REPLAYS)
 
 
 def side_phases(start: float) -> dict:
@@ -3941,6 +4288,7 @@ def side_phases(start: float) -> dict:
         cells_vs_dense()
         faulted["attack"] = attack_replay(refs)
         faulted["zones"] = zones_replay(refs)
+        faulted["mobility"] = mobility_replay(refs)
         check_init_replay()
         check_round_replay()
         serve_replay()
@@ -4019,8 +4367,11 @@ def main() -> int:
         twin_job = twin.submit(twin_phases, _START)
         finish_mf = mf_check(an)
         finish_zipf = faults_check(sol)
+        sweeps = mobility_sweeps()
         faulted = job.result()
-        faulted["contam"], faulted["zones-check"] = twin_job.result()
+        (faulted["contam"], faulted["zones-check"],
+         faulted["mobility-check"]) = twin_job.result()
+        faulted["mobility-sweeps"] = sweeps
     finally:
         side.shutdown(wait=True, cancel_futures=True)
         twin.shutdown(wait=True, cancel_futures=True)
@@ -4042,6 +4393,7 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
     scaled = defended_run()
     attack_profiles()
     zone_profiles()
+    mobility_profiles()
     params, default, state = gossip_replicas()
     check_gossip_round(params, default, state)
     flat = rounds_run(params, default, state)
@@ -4060,20 +4412,29 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
     attack, contam = faulted["attack"], faulted["contam"]
     zones, zcheck = faulted["zones"], faulted["zones-check"]
 
+    mob = faulted["mobility"]
+    mcheck = [faulted["mobility-check"], faulted["mobility-sweeps"]]
+
     def zone_launches(name):
         return sum(run["launches"][name] for run in zones.values())
 
+    def mob_launches(name):
+        return sum(run["launches"][name] for run in mob.values())
+
     zone_err = max(run.get("max_abs_err", 0) for run in zones.values())
+    mob_err = max(run["max_abs_err"] for run in mob.values())
 
     def merge_record(name, run, line, attack_launches):
         return dict(
             name=name, route="cuda", source="src/repro_torch/csrc/gossip_merge.cu",
             replaces=f"src/repro/kernels/gossip_merge.py:{line}",
             launches=(run["launches"] + attack_launches
-                      + contam["launches"][name] + zone_launches(name)),
+                      + contam["launches"][name] + zone_launches(name)
+                      + mob_launches(name)),
             max_abs_err=max(merge_worst, run["max_abs_err"],
                             attack["max_abs_err"], contam["max_abs_err"],
-                            zone_err if name == "gossip_merge_rows" else 0),
+                            zone_err if name == "gossip_merge_rows" else 0,
+                            mob_err if name == "gossip_merge_rows" else 0),
             ms=run["ms"], plain_ms=run["plain_ms"], bound_ms=run["bound_ms"],
             bound_by=run["bound_by"], library_ms=run["library_ms"])
 
@@ -4082,12 +4443,15 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
         source="src/repro_torch/csrc/contacts.cu",
         replaces="src/repro/kernels/contacts.py:299",
         launches=(main_run["launches"] + zipf["launches"]
-                  + zone_launches("pairwise_contacts") + zcheck["launches"]),
+                  + zone_launches("pairwise_contacts") + zcheck["launches"]
+                  + mob_launches("pairwise_contacts")
+                  + sum(run["launches"] for run in mcheck)),
         max_abs_err=max(err, main_run["max_abs_err"],
                         dense_run["max_abs_err"], fault_worst,
                         zipf["max_abs_err"],
                         faulted["faults-dense"]["max_abs_err"], zone_err,
-                        zcheck["max_abs_err"]),
+                        zcheck["max_abs_err"], mob_err,
+                        *(run["max_abs_err"] for run in mcheck)),
         ms=main_run["ms"], plain_ms=main_run["plain_ms"],
         bound_ms=main_run["bound_ms"], bound_by=main_run["bound_by"],
         library_ms=None,
@@ -4098,9 +4462,11 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
         source="src/repro_torch/csrc/cells.cu",
         replaces="src/repro/kernels/contacts.py:473",
         launches=(cell_run["launches"] + faulted["faults-cells"]["launches"]
-                  + zone_launches("cell_close_words")),
+                  + zone_launches("cell_close_words")
+                  + mob_launches("cell_close_words")),
         max_abs_err=max(cell_worst, cell_run["max_abs_err"], fault_worst,
-                        faulted["faults-cells"]["max_abs_err"], zone_err),
+                        faulted["faults-cells"]["max_abs_err"], zone_err,
+                        mob_err),
         ms=cell_run["ms"], plain_ms=cell_run["plain_ms"],
         bound_ms=cell_run["bound_ms"], bound_by=cell_run["bound_by"],
         library_ms=None), dict(

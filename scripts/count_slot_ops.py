@@ -1,9 +1,10 @@
-"""What the fault layer, the Byzantine attack and several Replication
-Zones add to a slot, counted on the CPU: the aten operations a slot
-dispatches (each is one kernel launch on the card, but for views), with
-and without faults, with learning under ``robust_defense()`` with and
-without ``harsh_adversarial()``, with three zones (one drifting) and with
-32, and those of the draws.
+"""What the fault layer, the Byzantine attack, several Replication Zones
+and the other mobility models add to a slot, counted on the CPU: the aten
+operations a slot dispatches (each is one kernel launch on the card, but
+for views), with and without faults, with learning under
+``robust_defense()`` with and without ``harsh_adversarial()``, with three
+zones (one drifting) and with 32, under rwp (with and without a pause),
+manhattan and rdm with ``speed_range``, and those of the draws.
 
     PYTHONPATH=src python scripts/count_slot_ops.py
 
@@ -56,11 +57,11 @@ def counted(fn) -> int:
     return c.n
 
 
-def per_slot(fc, lc=None, zones=None) -> float:
+def per_slot(fc, lc=None, zones=None, **mobility) -> float:
     p = paper_params(lam=0.05, M=1, **({} if lc is None else dict(Lam=10.0)))
     n = [counted(lambda: sweep.run([p], SimConfig(n_slots=s, sample_every=8,
                                                   faults=fc, learn=lc,
-                                                  zones=zones),
+                                                  zones=zones, **mobility),
                                    (0, 1), device="cpu"))
          for s in (16, 48)]
     return (n[1] - n[0]) / 32
@@ -73,6 +74,13 @@ def main() -> None:
     for label, zs in (("three zones, one drifting", THREE_ZONES),
                       ("32 zones", GRID_ZONES)):
         print(f"{label}: {per_slot(None, zones=zs)} aten ops a slot (B = 2, "
+              f"N = 200)")
+    for label, kw in (("rwp", dict(mobility="rwp")),
+                      ("rwp, 60 s pause", dict(mobility="rwp", pause_s=60.0)),
+                      ("manhattan", dict(mobility="manhattan")),
+                      ("rdm, speed_range (0.1, 1.9)",
+                       dict(speed_range=(0.1, 1.9)))):
+        print(f"{label}: {per_slot(None, **kw)} aten ops a slot (B = 2, "
               f"N = 200)")
     defended = dataclasses.replace(logreg_task(), defense=robust_defense())
     for label, fc in (("logreg + robust_defense()", None),

@@ -48,8 +48,9 @@ def paper_contact_model(
 ) -> ContactModel:
     """Analytic contact model at the paper geometry, its tensors on
     ``device`` (default ``cuda``). ``mobility`` names the simulation
-    model whose analytic twin is built; the port has ``rdm``, the paper's
-    own (:data:`repro_torch.core.mobility.CONTACT_MODELS`)."""
+    model whose analytic twin is built: ``rdm`` (the paper's own),
+    ``rwp`` or ``manhattan`` (:data:`repro_torch.core.mobility.
+    CONTACT_MODELS`)."""
     return contact_model_for(
         mobility, speed=speed, r_tx=R_TX, density=DENSITY, nt=nt,
         street_spacing=street_spacing, area_side=AREA_SIDE, device=device,

@@ -14,9 +14,20 @@ relative speed ``E|v_rel| = 4 v / pi`` (or by quadrature over U(lo, hi)
 speeds), so ``g = 2 r_tx E|v_rel| D``; a contact crosses a chord of the
 ``r_tx`` disc with a uniform impact parameter at ``E|v_rel|``.
 
-``rwp`` and ``manhattan`` (the reference's other twins) come with their
-simulation models (ROADMAP queue 1, item 5b); :func:`contact_model_for`
-raises for them.
+``rwp`` — Random Waypoint: the center-peaked stationary density raises the
+pairwise meeting rate by ``RWP_DENSITY_FACTOR`` over rdm's; with a
+waypoint pause the contacts mix move-move pairs (at ``4 v / pi``) and
+move-pause pairs (at ``v``), weighted by the moving fraction of a leg of
+mean length ``RWP_MEAN_LEG_FACTOR * area_side``.
+
+``manhattan`` — movement on a street grid of spacing ``s``: head-on passes
+on a shared street (linear density ``eta``; a point mass at ``r_tx / v``)
+and crossings at intersections (the chord law at ``sqrt(2) v``).
+
+The float32 steps are the reference's eager ones: its Python-float
+factors meet float32 masses as float32 scalars, so every twin equals
+``repro``'s arrays bit for bit on the CPU, apart from ``speed_range``'s
+quadrature (in float64 here).
 
 Device: the builders take ``device=None``, meaning ``cuda``; without a
 card that raises, as :func:`repro_torch.sim.simulate` does, unless the
@@ -34,8 +45,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.numerics import linspace32, row_sum32, sqrt32
 
-__all__ = ["ContactModel", "rdm_contact_model", "CONTACT_MODELS",
-           "contact_model_for", "mean_relative_speed_uniform"]
+__all__ = ["ContactModel", "rdm_contact_model", "rwp_contact_model",
+           "manhattan_contact_model", "CONTACT_MODELS", "contact_model_for",
+           "mean_relative_speed_uniform", "RWP_DENSITY_FACTOR",
+           "RWP_MEAN_LEG_FACTOR"]
+
+#: Pair-concentration factor of the RWP stationary density: a^2 ∫ f^2 with
+#: the normalized polynomial approximation f = (36/a^6) x(a-x) y(a-y).
+RWP_DENSITY_FACTOR = 1.44
+
+#: Mean leg length between two uniform waypoints in a unit square (0.5214
+#: a for side a): the mean move time of a leg is 0.5214 a / v.
+RWP_MEAN_LEG_FACTOR = 0.5214
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,20 +150,104 @@ def rdm_contact_model(*, speed: float, r_tx: float, density: float,
         t_grid=centers, pdf=mass / widths, weights=widths)
 
 
-def _not_ported(name: str):
-    def builder(**_kwargs):
-        raise NotImplementedError(
-            f"the {name!r} contact model comes with the {name} mobility "
-            "model (ROADMAP queue 1, item 5b); the port has 'rdm'")
-    return builder
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def _model(g: float, centers, widths, mass) -> ContactModel:
+    return ContactModel(
+        g=torch.tensor(g, dtype=torch.float32, device=centers.device),
+        t_grid=centers, pdf=mass / widths, weights=widths)
+
+
+def rwp_contact_model(*, speed: float, r_tx: float, density: float,
+                      pause_s: float = 0.0, area_side: float | None = None,
+                      nt: int = 512, device=None, **_geometry) -> ContactModel:
+    """Analytic contact model for Random Waypoint mobility, with pause.
+
+    With ``pause_s = 0``: rdm's chord law at ``4 v / pi`` and its rate
+    times ``RWP_DENSITY_FACTOR``. With a constant waypoint pause each node
+    moves a fraction ``p_m = T_move / (T_move + pause_s)`` of the time,
+    ``T_move = RWP_MEAN_LEG_FACTOR * area_side / v`` (so ``area_side`` is
+    required; ``ValueError`` without it): move-move pairs meet at rate
+    ``p_m² RWP_DENSITY_FACTOR 2 r_tx (4v/pi) D``, move-pause pairs at
+    ``2 p_m (1 - p_m) 2 r_tx v D`` (pauses sit at uniform waypoints), and
+    the duration pdf is the rate-weighted mixture of the two chord laws,
+    binned on the slower one's wider support. ``device`` as
+    :func:`rdm_contact_model`'s."""
+    device = resolve_device(device, "rwp_contact_model")
+    v_mm = 4.0 * speed / math.pi
+    if pause_s <= 0.0:
+        g = RWP_DENSITY_FACTOR * 2.0 * r_tx * v_mm * density
+        return _model(g, *_chord_bins(v_mm, r_tx, nt, device))
+    if area_side is None:
+        raise ValueError(
+            "rwp_contact_model with pause_s > 0 needs area_side (the mean "
+            "leg length sets the move/pause duty cycle)")
+    t_move = RWP_MEAN_LEG_FACTOR * area_side / speed
+    p_m = t_move / (t_move + pause_s)
+    rate_mm = p_m**2 * RWP_DENSITY_FACTOR * 2.0 * r_tx * v_mm * density
+    rate_mp = 2.0 * p_m * (1.0 - p_m) * 2.0 * r_tx * speed * density
+    g = rate_mm + rate_mp
+    w_mm = rate_mm / g
+    t_max = 2.0 * r_tx / speed
+    centers, widths, mass_mm = _chord_bins(v_mm, r_tx, nt, device,
+                                           t_max=t_max)
+    _, _, mass_mp = _chord_bins(speed, r_tx, nt, device, t_max=t_max)
+    # the weights are Python floats meeting float32 masses: float32 scalars
+    mass = _f32(w_mm) * mass_mm + _f32(1.0 - w_mm) * mass_mp
+    return _model(g, centers, widths, mass)
+
+
+def manhattan_contact_model(*, speed: float, r_tx: float, density: float,
+                            street_spacing: float = 25.0,
+                            area_side: float | None = None, nt: int = 512,
+                            device=None, **_geometry) -> ContactModel:
+    """Analytic contact model for Manhattan-grid mobility.
+
+    Same-street encounters at rate ``eta v``, each a head-on pass of
+    duration ``r_tx / v`` (a point mass, added to the bin whose upper edge
+    first reaches it, clipped to the last bin); perpendicular crossings at
+    rate ``sqrt(2) r_tx D v`` with the chord law at ``sqrt(2) v``. ``eta``
+    is ``D area_side / (2 n_s)`` on the finite grid of ``n_s =
+    round(area_side / s) + 1`` streets a direction when ``area_side`` is
+    given, else ``D s / 2``. As in ``repro``, ``sqrt(2)`` is a float32
+    constant, so ``g`` and the two weights are float32 sums and quotients.
+    Assumes ``street_spacing > 2 sqrt(2) r_tx``."""
+    device = resolve_device(device, "manhattan_contact_model")
+    f32 = np.float32
+    s = street_spacing
+    if area_side is not None:
+        n_streets = round(area_side / s) + 1
+        eta = density * area_side / (2.0 * n_streets)
+    else:
+        eta = density * s / 2.0
+    sqrt2 = f32(np.sqrt(f32(2.0)))
+    rate_par = eta * speed
+    rate_perp = f32(f32(density * speed) * sqrt2) * f32(r_tx)
+    g = f32(rate_par) + rate_perp
+    w_par = f32(rate_par) / g
+    w_perp = rate_perp / g
+    v_cross = float(sqrt2 * f32(speed))
+    # the perpendicular chord's support, 2 r / v_cross = sqrt(2) r / v,
+    # holds the head-on duration r / v
+    centers, widths, mass = _chord_bins(v_cross, r_tx, nt, device)
+    mass = float(w_perp) * mass
+    upper = centers + 0.5 * widths
+    t_head_on = torch.tensor([r_tx / speed], dtype=torch.float32,
+                             device=device)
+    head_bin = torch.searchsorted(upper, t_head_on).clamp(0, nt - 1)
+    mass = mass.index_add(0, head_bin, torch.full(
+        (1,), float(w_par), dtype=torch.float32, device=device))
+    return _model(float(g), centers, widths, mass)
 
 
 #: name -> analytic builder; the same names key the simulation mobility
-#: registry in ``repro_torch.sim.mobility``.
+#: registry ``repro_torch.sim.mobility.MOBILITY_MODELS``.
 CONTACT_MODELS = {
     "rdm": rdm_contact_model,
-    "rwp": _not_ported("rwp"),
-    "manhattan": _not_ported("manhattan"),
+    "rwp": rwp_contact_model,
+    "manhattan": manhattan_contact_model,
 }
 
 

@@ -12,6 +12,9 @@ bit for bit:
 * ``bits(key, shape)``   -> the XOR of the two hash words at each counter;
 * ``uniform``            -> ``bits >> 9`` as the mantissa of ``[1, 2)``,
   minus 1, scaled into ``[minval, maxval)``;
+* ``bernoulli``          -> ``uniform(key, shape) < p``, ``p`` in float32;
+* ``randint``            -> two 32-bit draws (from a split of the key)
+  folded into ``[minval, maxval)`` by JAX's modular recipe;
 * ``normal``             -> ``sqrt(2) * erf_inv(u)`` of a uniform ``u`` in
   ``(-1, 1)``, with XLA's float32 ``erf_inv`` and ``log1p`` written out
   (:mod:`repro_torch.numerics`).
@@ -32,8 +35,8 @@ import torch
 
 from repro_torch.numerics import erfinv32
 
-__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "normal",
-           "erf_inv_draw", "SQRT2"]
+__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "bernoulli",
+           "randint", "normal", "erf_inv_draw", "SQRT2"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -116,6 +119,47 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     span = float(np.float32(np.float32(maxval) - np.float32(lo)))
     out = (f.double() * span + lo).float()
     return torch.clamp(out, min=lo)
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli`` (its default ``mode="low"``): a float32
+    uniform draw below ``p``, the probability rounded to float32."""
+    return uniform(key, shape) < float(np.float32(p))
+
+
+_I32_MIN, _I32_MAX = -2**31, 2**31 - 1
+
+
+def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """``(a * m) mod 2³²`` for ``a`` and ``m`` below 2³², in int64 halves
+    that never overflow."""
+    lo = a * (m & 0xFFFF)
+    hi = ((a * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` into int32, for scalar int32 bounds.
+
+    JAX splits the key in two and draws 32 bits from each (``hi``, then
+    ``lo``). With ``span = maxval - minval`` as uint32 (1 where ``maxval
+    <= minval``) and ``mult = (2¹⁶ % span)² % span`` it returns ``minval +
+    ((hi % span) * mult + lo % span) % span``, every product and sum
+    wrapping as uint32 does (so ``mult`` is 0 for every span above 2¹⁶),
+    and the sum with ``minval`` as int32 does.
+    Computed in int64 and masked back to 32 bits."""
+    shape = tuple(shape)
+    minval, maxval = int(minval), int(maxval)
+    if not (_I32_MIN <= minval <= _I32_MAX and _I32_MIN <= maxval <= _I32_MAX):
+        raise ValueError(f"randint: bounds ({minval}, {maxval}) outside int32")
+    span = 1 if maxval <= minval else (maxval - minval) & _MASK
+    mult = ((2**16 % span) ** 2 & _MASK) % span
+    k1, k2 = split(key, 2).unbind(-2)
+    offset = (_mul32(bits(k1, shape) % span, mult)
+              + bits(k2, shape) % span) & _MASK
+    offset = offset % span
+    out = (offset + minval - _I32_MIN) % 2**32 + _I32_MIN    # int32 wrap
+    return out.to(torch.int32)
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

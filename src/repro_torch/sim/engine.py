@@ -69,15 +69,16 @@ zone axis; their analytic twin is ``core.meanfield.
 solve_fixed_point_multizone`` with ``core.dde.
 solve_observation_availability_multizone``.
 
-The port runs the paper's validation loop: ``rdm`` (or ``replay``)
-mobility at constant speed, any ``ZoneSet``, any ``M``, with or
+The port runs the paper's validation loop with any of ``repro``'s
+mobility models (``cfg.mobility``: ``rdm``, with per-node speeds under
+``speed_range``; ``rwp`` with any ``pause_s``; ``manhattan`` with any
+``street_spacing``; or ``replay``), any ``ZoneSet``, any ``M``, with or
 without the protocol faults, learning (average or trimmed defenses) and
 the Byzantine attacks, on either contact backend: the dense O(N²)
 sweep, or the cell lists of ``repro_torch.sim.cells``
 (``contact_backend="cells"``, or ``"auto"`` from ``cells.AUTO_CELLS_MIN_N``
 nodes up), whose running overflow count comes back as ``nbr_overflow``.
-Any other configuration raises ``NotImplementedError`` naming the slice
-that will port it.
+An unknown mobility model or backend raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -111,8 +112,7 @@ __all__ = ["SimConfig", "SimOutputs", "BatchSimOutputs", "effective_zones",
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Geometry, mobility and discretization (paper defaults): the fields
-    and defaults of ``repro.sim.SimConfig`` that this slice reads or
-    refuses. The rwp and manhattan settings come with their slice."""
+    and defaults of ``repro.sim.SimConfig``, in its order."""
 
     n_nodes: int = 200
     area_side: float = 200.0
@@ -127,14 +127,19 @@ class SimConfig:
     q_train: int = 16                    # training queue slots per node
     q_merge: int = 16                    # merging queue slots per node
     warmup_frac: float = 0.3             # discarded transient fraction
-    mobility: str = "rdm"                # "rdm" | "replay" (positions given)
+    mobility: str = "rdm"                # "rdm" | "rwp" | "manhattan" |
+                                         # "replay" (positions given)
+    street_spacing: float = 25.0         # Manhattan-grid street spacing [m]
+    pause_s: float = 0.0                 # RWP waypoint pause time [s]
     zones: ZoneSet | None = None         # None = one centered disc
     contact_backend: str = "auto"        # "dense" | "cells" | "auto"
     cell_cap: int | None = None          # cells: node slots per grid cell
                                          # (None = density-derived auto)
     nbr_cap: int | None = None           # cells: neighbour-list cap per node
                                          # (None = density-derived auto)
-    speed_range: tuple | None = None     # per-node U(lo, hi) speeds (rdm)
+    speed_range: tuple | None = None     # per-node U(lo, hi) speeds (rdm;
+                                         # with "replay": the replayed rdm
+                                         # run's, for its key split)
     faults: Any = None                   # repro_torch.sim.faults.FaultConfig;
                                          # None or a disabled config runs
                                          # exactly the fault-free program
@@ -143,10 +148,12 @@ class SimConfig:
                                          # ("warn") or raises ("strict")
 
     def __post_init__(self):
-        if self.speed_range is not None and self.mobility != "rdm":
+        if self.speed_range is not None and self.mobility not in ("rdm",
+                                                                  "replay"):
             raise ValueError(
                 "speed_range is implemented for the 'rdm' mobility model "
-                f"only (got mobility={self.mobility!r})")
+                f"only (got mobility={self.mobility!r}); the other models "
+                "would silently run at the constant cfg.speed")
         if self.overflow_mode not in ("warn", "strict"):
             raise ValueError(f"unknown overflow_mode {self.overflow_mode!r}; "
                              "known: 'warn', 'strict'")
@@ -310,10 +317,10 @@ def _check_params(ps: Sequence[FGParams]) -> int:
 
 
 def _check_config(cfg: SimConfig) -> None:
-    """Raises ``ValueError`` for a ``faults`` or ``learn`` that is not the
-    port's record and ``NotImplementedError`` for what this port does not
-    run."""
-    backend = cells.contact_backend(cfg)        # raises on an unknown name
+    """Raises ``ValueError`` for an unknown contact backend or mobility
+    model, and for a ``faults`` or ``learn`` that is not the port's
+    record."""
+    cells.contact_backend(cfg)                  # raises on an unknown name
     for field, kind in (("faults", faults.FaultConfig),
                         ("learn", learning.LearnConfig)):
         value = getattr(cfg, field)
@@ -321,15 +328,8 @@ def _check_config(cfg: SimConfig) -> None:
             raise ValueError(
                 f"SimConfig.{field} must be a {kind.__module__}."
                 f"{kind.__name__} (got {type(value).__name__})")
-    later = None
-    if cfg.mobility not in ("rdm", "replay"):
-        later = (f"mobility={cfg.mobility!r} (the mobility slice, ROADMAP "
-                 "queue 1, item 5b)")
-    elif cfg.speed_range is not None:
-        later = "speed_range (the mobility slice, ROADMAP queue 1, item 5b)"
-    if later is not None:
-        on = " on the cell-list backend" if backend == "cells" else ""
-        raise NotImplementedError(f"repro_torch does not run {later}{on} yet")
+    if cfg.mobility != "replay":
+        get_mobility(cfg.mobility)              # raises on an unknown name
 
 
 def _check_supported(p: FGParams, cfg: SimConfig) -> int:
@@ -778,8 +778,10 @@ def scan_carry_bytes(cfg: SimConfig, M: int) -> int:
     """Bytes of one run's carry: its ``SimState`` plus its PRNG key,
     shapes only (built on the ``meta`` device, nothing is allocated).
 
-    Every ``SimState`` field has ``repro``'s shape and width (packed words
-    are int32 here, uint32 there), so the carry is ``repro``'s
+    The mobility state is the configuration's own model's (rdm's for
+    ``replay``, which ``repro`` does not have). Every ``SimState`` field has
+    ``repro``'s shape and width (packed words are int32 here, uint32
+    there), so the carry is ``repro``'s
     ``scan_carry_bytes`` plus 8: the key is two int64 words here (torch has
     no uint32 arithmetic on the CPU, ``repro_torch.random``) against two
     uint32 words in ``repro``."""

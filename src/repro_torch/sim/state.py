@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.sim.cells import contact_backend, make_grid
-from repro_torch.sim.mobility import RDMState
+from repro_torch.sim.mobility import ManhattanState, RDMState, RWPState
 
 __all__ = ["SimState", "init_sim_state", "queue_dtypes", "state_from_numpy",
            "state_to_numpy", "WORD_FIELDS"]
@@ -175,19 +175,28 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a[None]).to(device)
 
 
+def _mobility_state(fields: dict, device):
+    """The mobility state whose field names are ``fields``' (an rdm, rwp
+    or manhattan state: each has its own)."""
+    for kind in (RDMState, RWPState, ManhattanState):
+        if set(fields) == {f.name for f in dataclasses.fields(kind)}:
+            return kind(**{k: _to_torch(v, device) for k, v in fields.items()})
+    raise ValueError(f"no mobility state has the fields {sorted(fields)}")
+
+
 def state_from_numpy(fields: dict, device) -> SimState:
     """The port's ``SimState`` (``B = 1``) from one ``repro`` run's state.
 
     ``fields`` maps every ``repro`` ``SimState`` field that is not None to
-    a numpy array, except ``mob``, which maps the rdm state's fields
-    (``pos``, ``ang``, ``spd``) to arrays; uint32 words become int32 bits."""
+    a numpy array, except ``mob``, which maps the mobility state's fields
+    to arrays: an rdm (``pos``, ``ang``, ``spd``), rwp (``pos``, ``dest``,
+    ``wait``) or manhattan state (``pos``, ``horiz``, ``sgn``), told apart
+    by those names. uint32 words become int32 bits."""
     kw = {f.name: _to_torch(fields[f.name], device)
           for f in dataclasses.fields(SimState)
           if f.name != "mob" and f.name in fields}
     kw["nbr_overflow"] = kw["nbr_overflow"].reshape(1)
-    mob = RDMState(**{k: _to_torch(v, device)
-                      for k, v in fields["mob"].items()})
-    return SimState(mob=mob, **kw)
+    return SimState(mob=_mobility_state(fields["mob"], device), **kw)
 
 
 def state_to_numpy(state: SimState, cfg, item: int = 0) -> dict:

@@ -120,9 +120,12 @@ def test_speed_range_contact_model_matches():
 def test_contact_model_registry():
     with pytest.raises(ValueError, match="unknown mobility model"):
         t_mob.contact_model_for("levy", speed=1.0, r_tx=5.0, density=1e-3)
+    # the rwp and manhattan twins, refused until the mobility slice, build
     for name in ("rwp", "manhattan"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            t_paper.paper_contact_model(mobility=name, device="cpu")
+        t = t_paper.paper_contact_model(mobility=name, device="cpu")
+        r = r_paper.paper_contact_model(mobility=name)
+        for f in ("g", "t_grid", "pdf", "weights"):
+            _same_bits(getattr(t, f), getattr(r, f), f"{name} {f}")
 
 
 @pytest.mark.parametrize("lam,M", GRID)

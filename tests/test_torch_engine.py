@@ -7,8 +7,9 @@
     equals the port's own ``init_sim_state``, and ``state_to_numpy``
     carries it back.
 (c) The port runs free on the CPU; without CUDA the default device raises;
-    configurations outside this slice raise ``NotImplementedError``, and
-    a ``faults`` that is not the port's ``FaultConfig`` ``ValueError``.
+    rwp and ``speed_range`` run, an unknown mobility name, ``speed_range``
+    outside rdm and a ``faults`` that is not the port's ``FaultConfig``
+    raise ``ValueError``.
 (d) Two-zone configurations, on either backend, with faults and on the
     Byzantine path, equal ``repro``'s runs on its positions.
 """
@@ -203,15 +204,27 @@ TWO_ZONES = ZoneSet(centers=((20.0, 20.0), (40.0, 40.0)), radii=(15.0, 15.0))
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(mobility="rwp"), NotImplementedError, "rwp.*item 5b"),
-    (dict(speed_range=(0.5, 1.5)), NotImplementedError,
-     "speed_range.*item 5b"),
+    # rwp and speed_range ran into NotImplementedError until the mobility
+    # slice: now they run, and what stays outside raises ValueError
+    (dict(mobility="rwp"), ValueError, "speed_range is implemented"),
+    (dict(speed_range=(0.5, 1.5)), ValueError, "unknown mobility model"),
     # faults must be the port's own record: not an object, not repro's
     (dict(learn=logreg_task(), faults=object()), ValueError,
      "repro_torch.sim.faults.FaultConfig"),
 ], ids=["change2-rwp", "change3-speed_range", "change4-faults slice"])
 def test_configurations_outside_the_slice_raise(change, error, match):
     cfg = SimConfig(**{**GEOM, **change})
+    if "faults" not in change:
+        out = simulate(paper_params(), dataclasses.replace(cfg, n_slots=16),
+                       device="cpu")
+        assert np.all(np.isfinite(out.availability)) and out.n_in_rz.min() > 0
+        with pytest.raises(error, match=match):
+            if change.get("mobility") == "rwp":
+                dataclasses.replace(cfg, speed_range=(0.5, 1.5))
+            else:
+                simulate(paper_params(), dataclasses.replace(
+                    cfg, mobility="levy", speed_range=None), device="cpu")
+        return
     with pytest.raises(error, match=match):
         simulate(paper_params(), cfg, device="cpu")
     if change.get("faults") is not None and error is ValueError:

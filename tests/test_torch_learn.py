@@ -19,7 +19,8 @@
 * A replayed engine run at ``tests/test_sim_learn.py``'s geometry (N = 48,
   480 slots) equals ``repro.simulate(..., learn=...)`` bit for bit on every
   protocol trace and on ``merge_stats``; its learning traces are within
-  rtol 1e-5 / atol 1e-6 of the reference's.
+  rtol 1e-5 / atol 1e-6 of the reference's (``check_replayed_learning_run``,
+  run from ``tests/test_torch_learn_runs_a.py`` and ``_b.py``).
 """
 
 import dataclasses
@@ -60,6 +61,17 @@ PROTOCOL = ("t", "availability", "busy_frac", "stored_info", "obs_birth",
 LEARNING = ("test_acc", "test_acc_holders", "learn_obs", "theta_var")
 TASK_FIELDS = ("theta0", "w_true", "x_test", "y_test", "stream_key")
 TAU_L = np.float32(300.0)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread a test: with JAX's thread pool in the same process
+    and the other test workers beside it, torch's intra-op threads made
+    these small-op runs several times slower."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture
@@ -524,8 +536,11 @@ ENGINE_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(ENGINE_CASES))
-def test_replayed_learning_run_equals_repro(working_barrier, case):
+def check_replayed_learning_run(case):
+    """The replayed run of ``ENGINE_CASES[case]`` against ``repro``'s (the
+    barrier patched by the caller's ``working_barrier``). The four cases
+    run in ``tests/test_torch_learn_runs_a.py`` and ``_b.py``, two a file,
+    so that they spread over the workers: each takes minutes there."""
     lc_kw, defense, model, seed = ENGINE_CASES[case]
     r_lc, t_lc = _pair(lc_kw, defense, model)
     p_args = dict(lam=0.05, Lam=10.0, M=1)

@@ -372,8 +372,15 @@ def test_refusals():
     with pytest.raises(ValueError, match="model count"):
         sweep.run([ps[0], paper_params(lam=0.1, M=3)], cfg, [0],
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        sweep.run(ps, SimConfig(**GEOM, mobility="rwp"), [0], device="cpu")
+    with pytest.raises(ValueError, match="unknown mobility model"):
+        sweep.run(ps, SimConfig(**GEOM, mobility="levy"), [0], device="cpu")
+    # rwp, manhattan and speed_range are no longer refused: per-seed
+    # mobility on the seeds' rows, broadcast to the scenarios
+    for kw in (dict(mobility="rwp", pause_s=5.0),
+               dict(mobility="manhattan"), dict(speed_range=(0.5, 1.5))):
+        got = sweep.run(ps[:2], SimConfig(**dict(GEOM, n_slots=16), **kw),
+                        [0, 1], device="cpu")
+        np.testing.assert_array_equal(got.n_in_rz[0], got.n_in_rz[1])
     # two zones are no longer refused: the sweep runs them, one trailing
     # zone axis on the per-zone traces
     two = SimConfig(**dict(GEOM, n_slots=16), zones=ZoneSet(
