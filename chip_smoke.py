@@ -268,6 +268,21 @@ Phases (any failure ends the run with a non-zero exit code):
     of the fixed point on the twin (on the card) and ``a_mf >= a_sim -
     0.02``; busy, nodes in the RZ and slots/s printed; the kernel held to
     its plain version on each sweep's last inputs.
+34. dispatch-check — the sweep dispatch queue (``repro_torch.sim.
+    dispatch``) on the card: first zone-root, ``zone_member`` on the
+    card on ROADMAP queue 3's boundary input, equal to the CPU's, the
+    boundary node outside; then Fig. 1's first 4 scenarios x seeds 0 and
+    1 at the paper geometry, 240 slots, one scenario a chunk,
+    ``reduce="mean"``: (a) in-process, (b) through ``sweep.run(workers=2,
+    queue_dir=...)``, (c) through ``run_dispatched`` under a chaos
+    schedule of a ``kill`` (chunk 0) and a ``corrupt`` result (chunk 1);
+    (b) and (c) equal (a) bit for bit with full coverage, (b) without a
+    requeue, (c) with an expired lease and a corrupt result seen; the
+    run-slots/s of (a) and (b), one after the other in one process, the
+    workers' start-up (each one's first claim, from the queue's lease
+    records), (c)'s wall and the card's name and power limit printed. The
+    workers are processes of their own, each with a CUDA context on the
+    card.
 
 Order: 1-4, 9, 13 and 25 (the kernel checks), the analytics of 7 and 27;
 then three processes on the card at once, all bound by the host's launch
@@ -276,8 +291,9 @@ and 33 (mobility-check's two), a second one (spawned, ``side_phases``)
 the phases that only check (the sweep phases, 5, 10, 6, 26, 11, 28, 30,
 32, 14's replays, 18 and 22), with every replay's CPU run queued at its
 start in a worker process of its own (spawned, at most 4 threads), and a
-third one (spawned, ``twin_phases``) 29, 31 and 33's probes (their CPU
-sides in a worker of its own, one thread). When the other two have
+third one (spawned, ``twin_phases``) 29, 31, 33's probes (their CPU
+sides in a worker of its own, one thread) and 34 (its two dispatch
+workers are processes of their own on the card). When the other two have
 ended, on a quiet card, this one times: the kernels on 7's and 27's last
 inputs and their profiles, then 8, 28's, 30's and 32's profiles, 12, 15,
 16, 17, 19, 20, 21, 23 and 24.
@@ -305,7 +321,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -341,6 +359,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gossip_merge as gm  # noqa: E402
 from repro_torch.kernels import ssd_scan as ks  # noqa: E402
 from repro_torch.models.attention import gqa_qkv  # noqa: E402
+from repro_torch.numerics import fma32, sqrt32  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.mamba import (init_mamba_cache,  # noqa: E402
                                       mamba_decode, mamba_forward,
@@ -359,6 +378,7 @@ from repro_torch.core.zones import ZoneSet  # noqa: E402
 from repro_torch.sim.engine import (SimConfig, effective_zones,  # noqa: E402
                                     mobility_track, simulate, zone_member)
 from repro_torch.core.mobility import contact_model_for  # noqa: E402
+from repro_torch.sim import dispatch as sim_dispatch  # noqa: E402
 from repro_torch.sim import mobility as sim_mobility  # noqa: E402
 from repro_torch.sim.mobility import (get_mobility,  # noqa: E402
                                       measure_contact_rate)
@@ -2720,7 +2740,9 @@ def zone_profiles() -> None:
 def twin_phases(start: float) -> tuple:
     """The third process on the card: ``contam_twin``, ``zones_check``,
     then ``contact_rates`` (mobility-check's probes), whose CPU sides run
-    meanwhile in a worker process of this one (spawned, one thread)."""
+    meanwhile in a worker process of this one (spawned, one thread), then
+    ``dispatch_check``, whose coordinator mostly waits on its two worker
+    processes."""
     pool = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -2728,7 +2750,8 @@ def twin_phases(start: float) -> tuple:
                      for label in MOB_EXACT}
         contam = contam_twin(start)
         zcheck = zones_check()
-        return contam, zcheck, contact_rates(cpu_rates)
+        rates = contact_rates(cpu_rates)
+        return contam, zcheck, rates, dispatch_check()
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -3031,6 +3054,143 @@ def mobility_profiles() -> None:
     lines.append(f"gossip_merge_rows under manhattan + harsh(): "
                  f"{merge_line(merged)}")
     phase("mobility-kernels", "; ".join(lines))
+
+
+# ------------------------------------------------------------- dispatch
+
+#: dispatch-check's sweep: 4 scenarios of Fig. 1's grid (the (5, 2.5) s
+#: service times x the four model sizes) x 2 seeds at the paper geometry,
+#: one scenario a chunk, ``reduce="mean"``.
+DISPATCH_CFG = SimConfig(n_slots=240, sample_every=8)
+DISPATCH_SEEDS = (0, 1)
+DISPATCH_WORKERS = 2
+#: The zone root's boundary input (ROADMAP queue 3): a centred zone of this
+#: radius and a node at ZONE_ROOT_POINT, one ulp outside it.
+ZONE_ROOT_RADIUS = 24.78697967529297
+ZONE_ROOT_POINT = (124.78194, 100.5)
+
+
+def zone_root() -> str:
+    """``zone_member`` on the card on the zone root's boundary input (a
+    (1, 200, 2) uniform track, numpy seed 0, node 7 on the point): the
+    same decisions as on the CPU, node 7 outside; and torch's own float32
+    root on the card against ``sqrt32`` on the node's d²."""
+    pos = np.random.default_rng(0).uniform(0.0, 200.0, (1, 200, 2))
+    pos = pos.astype(np.float32)
+    pos[0, 7] = ZONE_ROOT_POINT
+    zs = ZoneSet(centers=((100.0, 100.0),), radii=(ZONE_ROOT_RADIUS,))
+    card = zone_member(torch.from_numpy(pos).cuda(), zs).cpu()
+    cpu = zone_member(torch.from_numpy(pos), zs)
+    if not torch.equal(card, cpu) or bool(card[0, 7, 0]):
+        raise AssertionError("zone-root: the card's zone membership differs "
+                             "from the CPU's, or node 7 is inside")
+    d = torch.from_numpy(pos[0, 7]).cuda() - 100.0
+    d2 = fma32(d[1], d[1], d[0] * d[0])
+    raw = torch.sqrt(d2.expand(1024).contiguous())
+    return (f"node 7 outside on both devices, {int(card.sum())} of 200 "
+            f"inside, equal; torch's float32 root on the card "
+            f"{'==' if bool((raw == sqrt32(d2)).all()) else '!='} sqrt32 "
+            f"on its d^2")
+
+
+def first_claims(lease_dir: str, until: threading.Event) -> dict:
+    """Each worker's first claim time (``time.time()``, from its lease's
+    owner record), read from ``lease_dir`` until ``until`` is set: a
+    worker claims as soon as it has imported the port, made its CUDA
+    context and rebuilt the sweep's setup."""
+    seen: dict = {}
+    while not until.wait(0.02):
+        for name in os.listdir(lease_dir) if os.path.isdir(lease_dir) else ():
+            if name.endswith(".owner.json"):
+                with contextlib.suppress(OSError, ValueError):
+                    with open(os.path.join(lease_dir, name)) as f:
+                        owner = json.load(f)
+                    seen.setdefault(owner["worker"], owner["claimed_at"])
+    return seen
+
+
+def dispatch_check() -> dict:
+    """Phase 34: the sweep dispatch queue on the card. (a) the in-process
+    ``sweep.run`` of ``DISPATCH_CFG``'s sweep; (b) the same sweep through
+    ``sweep.run(workers=2, queue_dir=...)``; (c) again under a chaos
+    schedule of one ``kill`` (chunk 0) and one ``corrupt`` (chunk 1): (b)
+    and (c) equal (a) bit for bit on every statistic, coverage full, (b)
+    without a requeue, (c) with an expired lease and a corrupt result seen.
+    The workers run ``pairwise_contacts`` in their own processes; the
+    kernel is held to its plain version by the phases of this script."""
+    phase("zone-root", zone_root())
+    ps = fig1_grid()[:4]
+    n_slots = slots_run(DISPATCH_CFG)
+    runs = len(ps) * len(DISPATCH_SEEDS)
+    kw = dict(reduce="mean", chunk_size=1)
+    reset_counts()
+    t = time.perf_counter()
+    inproc = sweep.run(ps, DISPATCH_CFG, DISPATCH_SEEDS, **kw)
+    t_in = time.perf_counter() - t
+    launches = counts()
+    if launches != per_run(DENSE_ONLY, len(ps) * n_slots):
+        raise AssertionError(f"dispatch-check launches {launches}")
+
+    def same(out, what):
+        for k, v in inproc.stats.items():
+            if not np.array_equal(v, out.stats[k], equal_nan=True):
+                raise AssertionError(f"dispatch-check: {what} differs from "
+                                     f"the in-process sweep on {k}")
+        if set(out.stats) != set(inproc.stats) or not out.coverage.all():
+            raise AssertionError(f"dispatch-check: {what}'s keys or "
+                                 f"coverage differ")
+
+    with tempfile.TemporaryDirectory(prefix="dispatch-check-") as qd:
+        until = threading.Event()
+        with concurrent.futures.ThreadPoolExecutor(1) as watch:
+            claims = watch.submit(first_claims,
+                                  os.path.join(qd, "clean", "leases"), until)
+            t0, t = time.time(), time.perf_counter()
+            try:
+                clean = sweep.run(ps, DISPATCH_CFG, DISPATCH_SEEDS, **kw,
+                                  workers=DISPATCH_WORKERS,
+                                  queue_dir=os.path.join(qd, "clean"))
+            finally:
+                t_clean = time.perf_counter() - t
+                until.set()
+        start_s = sorted(round(c - t0, 2) for c in claims.result().values())
+        same(clean, "the dispatched sweep")
+        tel = clean.telemetry
+        if any(tc["requeues"] for tc in tel["chunks"].values()) or (
+                tel["expired_leases"] or tel["corrupt_results"]):
+            raise AssertionError(f"dispatch-check: requeues in a clean "
+                                 f"dispatch: {tel}")
+        chaos = [sim_dispatch.chaos_directive(0, 0, "kill"),
+                 sim_dispatch.chaos_directive(1, 0, "corrupt")]
+        t = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            hurt = sim_dispatch.run_dispatched(
+                ps, DISPATCH_CFG, DISPATCH_SEEDS, **kw,
+                workers=DISPATCH_WORKERS, chaos=chaos,
+                queue_dir=os.path.join(qd, "chaos"))
+        t_chaos = time.perf_counter() - t
+        same(hurt, "the sweep under kill + corrupt")
+        tel_c = hurt.telemetry
+        if tel_c["expired_leases"] < 1 or tel_c["corrupt_results"] < 1:
+            raise AssertionError(f"dispatch-check: chaos not seen: {tel_c}")
+    phase("dispatch-check", (
+        f"Fig. 1's first {len(ps)} scenarios x seeds {DISPATCH_SEEDS}, "
+        f"N={DISPATCH_CFG.n_nodes}, {n_slots} slots, chunks of 1 scenario, "
+        f"mean: (a) in-process {t_in:.2f}s, run-slots/s="
+        f"{runs * n_slots / t_in:.1f}, launches "
+        f"{launches['pairwise_contacts']}; (b) {DISPATCH_WORKERS} workers "
+        f"{t_clean:.2f}s, run-slots/s={runs * n_slots / t_clean:.1f}, every "
+        f"stat == (a), no requeue, chunk latencies "
+        f"{[tc['latency_s'] for tc in tel['chunks'].values()]}s, the "
+        f"workers' first claims (start: import, CUDA context, setup) at "
+        f"{start_s}s, run-slots/s from the first claim "
+        f"{runs * n_slots / (t_clean - start_s[0]):.1f}; (c) kill chunk 0 + "
+        f"corrupt chunk 1: {t_chaos:.2f}s, every stat == (a), expired "
+        f"leases {tel_c['expired_leases']}, corrupt results "
+        f"{tel_c['corrupt_results']}, respawns {tel_c['respawns']}; on "
+        f"{card_line()}"))
+    return dict(launches=launches["pairwise_contacts"])
 
 
 # ------------------------------------------------------- the gossip round
@@ -4334,15 +4494,19 @@ def scaled_point(n_total: int, n_slots: int):
     return p, cfg
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     cap = torch.cuda.get_device_capability(0)
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     phase("device", f"{torch.cuda.get_device_name(0)} sm_{cap[0]}{cap[1]}, "
                     f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if cap != (9, 0):
@@ -4370,7 +4534,7 @@ def main() -> int:
         sweeps = mobility_sweeps()
         faulted = job.result()
         (faulted["contam"], faulted["zones-check"],
-         faulted["mobility-check"]) = twin_job.result()
+         faulted["mobility-check"], faulted["dispatch"]) = twin_job.result()
         faulted["mobility-sweeps"] = sweeps
     finally:
         side.shutdown(wait=True, cancel_futures=True)
@@ -4445,7 +4609,8 @@ def main_phases(floor_ms: float, checks: dict, finish_mf, finish_zipf,
         launches=(main_run["launches"] + zipf["launches"]
                   + zone_launches("pairwise_contacts") + zcheck["launches"]
                   + mob_launches("pairwise_contacts")
-                  + sum(run["launches"] for run in mcheck)),
+                  + sum(run["launches"] for run in mcheck)
+                  + faulted["dispatch"]["launches"]),
         max_abs_err=max(err, main_run["max_abs_err"],
                         dense_run["max_abs_err"], fault_worst,
                         zipf["max_abs_err"],

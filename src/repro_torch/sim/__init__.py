@@ -9,17 +9,24 @@ single runs and sweeps. The contamination flag's analytic twin is
 ``core.dde.solve_contamination_transient``. The mobility models (``rdm``,
 ``rwp``, ``manhattan``; ``MOBILITY_MODELS``, ``get_mobility``) pair with
 their analytic twins by name, and ``measure_contact_rate`` measures a
-model's contact rate on the contact kernel."""
+model's contact rate on the contact kernel; ``register_mobility`` adds a
+user's model. ``dispatch`` runs a sweep from several worker processes
+through a file-system lease queue (``sweep.run(workers=...)``)."""
 
-from repro_torch.sim import faults, sweep
+from repro_torch.core.zones import ZoneSet
+from repro_torch.sim import cells, dispatch, faults, sweep
+from repro_torch.sim.dispatch import RetryPolicy
 from repro_torch.sim.engine import (BatchSimOutputs, SimConfig, SimOutputs,
-                                    simulate, simulate_batch)
+                                    effective_zones, simulate, simulate_batch)
 from repro_torch.sim.mobility import (MOBILITY_MODELS, MobilityModel,
-                                      get_mobility, measure_contact_rate)
+                                      get_mobility, measure_contact_rate,
+                                      register_mobility)
 from repro_torch.sim.observations import estimate_o_of_tau
-from repro_torch.sim.sweep import SweepPlan, plan_sweep
+from repro_torch.sim.sweep import SweepPlan, SweepSummary, plan_sweep
 
-__all__ = ["SimConfig", "SimOutputs", "BatchSimOutputs", "simulate",
+__all__ = ["cells", "dispatch", "RetryPolicy", "SimConfig", "SimOutputs",
+           "BatchSimOutputs", "ZoneSet", "effective_zones", "simulate",
            "simulate_batch", "sweep", "plan_sweep", "SweepPlan",
-           "estimate_o_of_tau", "faults", "MOBILITY_MODELS", "MobilityModel",
-           "get_mobility", "measure_contact_rate"]
+           "SweepSummary", "estimate_o_of_tau", "faults", "MOBILITY_MODELS",
+           "MobilityModel", "get_mobility", "register_mobility",
+           "measure_contact_rate"]

@@ -97,7 +97,7 @@ from repro_torch import resolve_device
 from repro_torch.core.meanfield import FGParams
 from repro_torch.core.zones import ZoneSet, single_zone
 from repro_torch.kernels.contacts import zone_words
-from repro_torch.numerics import fma32
+from repro_torch.numerics import fma32, sqrt32
 from repro_torch.sim import cells, compute, contacts, faults, observations
 from repro_torch.sim import learn as learning
 from repro_torch.sim.mobility import get_mobility, replay_model
@@ -240,7 +240,7 @@ class BatchSimOutputs:
     host_bytes: int | None = None
     failed_chunks: tuple = ()    # sweep chunks that exhausted their retries
     coverage: Any = None         # (n_scenarios,) bool: False = filled rows
-    quarantined: tuple = ()      # poison chunks (the dispatch queue's; empty)
+    quarantined: tuple = ()      # poison chunks of the dispatch queue
     telemetry: Any = None        # per-chunk attempt and latency records
 
     @property
@@ -356,8 +356,10 @@ def zone_member(pos, zs: ZoneSet, t_now: float = 0.0,
     """``(B, N, K)`` per-zone membership of the ``(B, N, 2)`` positions at
     time ``t_now``: ``‖pos - c‖ <= r`` with the norm's square as
     ``fma(dy, dy, dx*dx)`` — the reverse of d²'s order, as jitted XLA
-    computes ``jnp.linalg.norm`` here (an IEEE float32 square root, as on
-    either device).
+    computes ``jnp.linalg.norm`` here — and its root ``numerics.sqrt32``,
+    the correctly rounded float32 root, on either device: torch's
+    vectorized float32 root on the CPU is an ulp off on some inputs, which
+    flips a node on the boundary of some radii.
 
     Drifting centers fold ``c + u·t`` into ``[0, area_side]`` (specular
     reflection off the area's walls): ``side - |side - (c + u·t) mod
@@ -373,7 +375,7 @@ def zone_member(pos, zs: ZoneSet, t_now: float = 0.0,
         c = side - torch.abs(side - m)
     dx = pos[..., :, None, 0] - c[:, 0]
     dy = pos[..., :, None, 1] - c[:, 1]
-    return torch.sqrt(fma32(dy, dy, dx * dx)) <= r
+    return sqrt32(fma32(dy, dy, dx * dx)) <= r
 
 
 def _mobility(cfg: SimConfig, positions, device):

@@ -50,8 +50,8 @@ from repro_torch.numerics import fma32, sqrt32
 from repro_torch.sim.compute import packed_popcount
 
 __all__ = ["RDMState", "RWPState", "ManhattanState", "ReplayState",
-           "MobilityModel", "MOBILITY_MODELS", "get_mobility", "replay_model",
-           "measure_contact_rate"]
+           "MobilityModel", "MOBILITY_MODELS", "register_mobility",
+           "get_mobility", "replay_model", "measure_contact_rate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,6 +247,16 @@ MOBILITY_MODELS = {
     "manhattan": MobilityModel(name="manhattan", init=_manhattan_init,
                                step=_manhattan_step),
 }
+
+
+def register_mobility(model: MobilityModel) -> MobilityModel:
+    """Add (or replace) ``model`` in :data:`MOBILITY_MODELS` under its
+    name, so ``SimConfig(mobility=model.name)`` runs it; returns it. Its
+    state needs ``pos`` ``(B, N, 2)``. A dispatched sweep's workers are
+    processes of their own: a model registered here reaches them only if
+    the module that registers it is imported there."""
+    MOBILITY_MODELS[model.name] = model
+    return model
 
 
 def get_mobility(name: str) -> MobilityModel:

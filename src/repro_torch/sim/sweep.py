@@ -33,8 +33,10 @@ under a :class:`repro_torch.sim.dispatch.RetryPolicy`; one that exhausts
 it is NaN/zero-filled, listed in ``failed_chunks`` and masked out of
 ``coverage``.
 
-``repro``'s multi-process dispatch queue (``workers``, ``queue_dir``,
-``xla_cache_dir``) is not ported yet (ROADMAP queue 1, item 6) and raises.
+**Workers.** ``workers=`` runs the chunks in that many worker processes
+through :mod:`repro_torch.sim.dispatch`'s file-system lease queue, which
+survives killed, hung, frozen, slow and corrupt workers; its chunk files
+are the checkpoint files above, so either path can resume the other.
 """
 
 from __future__ import annotations
@@ -187,7 +189,7 @@ class SweepSummary:
     quantiles: tuple[float, ...] | None = None
     failed_chunks: tuple[int, ...] = ()
     coverage: np.ndarray | None = None
-    quarantined: tuple[int, ...] = ()     # the dispatch queue's; empty here
+    quarantined: tuple[int, ...] = ()     # poison chunks of the dispatch queue
     telemetry: dict | None = None
 
 
@@ -568,11 +570,15 @@ def _coverage_mask(plan: SweepPlan, uncovered: Sequence[int]) -> np.ndarray:
 
 
 def _finalize(setup: _SweepSetup, host_chunks: list, *, devices_used: int,
-              failed: Sequence[int] = (), telemetry: dict | None = None):
+              failed: Sequence[int] = (), quarantined: Sequence[int] = (),
+              telemetry: dict | None = None):
     """Assemble the chunks' host results (in chunk order) into the sweep's
-    ``BatchSimOutputs`` or ``SweepSummary``."""
+    ``BatchSimOutputs`` or ``SweepSummary``; shared by the in-process
+    runner and the dispatcher, so both give the same result from the same
+    chunks."""
     plan, cfg, reduce = setup.plan, setup.cfg, setup.reduce
     failed = tuple(sorted(failed))
+    quarantined = tuple(sorted(quarantined))
     P, R = plan.n_scenarios, plan.n_seeds
     host_bytes = sum(v.nbytes for hc in host_chunks for v in hc.values())
     outs = {k: np.concatenate([hc[k] for hc in host_chunks])[:P, :R]
@@ -591,7 +597,8 @@ def _finalize(setup: _SweepSetup, host_chunks: list, *, devices_used: int,
         return BatchSimOutputs(
             t=t, **{_FIELD.get(k, k): v for k, v in outs.items()},
             plan=plan, devices_used=devices_used, host_bytes=host_bytes,
-            failed_chunks=failed, coverage=coverage, telemetry=telemetry)
+            failed_chunks=failed, coverage=coverage, quarantined=quarantined,
+            telemetry=telemetry)
     if reduce == "o_tau":
         # the ratio is host arithmetic on the copied histograms
         num, den = outs["o_tau_num"], outs["o_tau_den"]
@@ -600,7 +607,8 @@ def _finalize(setup: _SweepSetup, host_chunks: list, *, devices_used: int,
         reduce=reduce, t=t, warmup_samples=setup.s0, stats=outs, plan=plan,
         devices_used=devices_used, host_bytes=host_bytes,
         quantiles=setup.quantiles if reduce == "quantiles" else None,
-        failed_chunks=failed, coverage=coverage, telemetry=telemetry)
+        failed_chunks=failed, coverage=coverage, quarantined=quarantined,
+        telemetry=telemetry)
 
 
 def run(ps: Sequence[FGParams] | FGParams, cfg: SimConfig,
@@ -646,8 +654,18 @@ def run(ps: Sequence[FGParams] | FGParams, cfg: SimConfig,
                   chunk recomputed.
       retry_policy: a :class:`repro_torch.sim.dispatch.RetryPolicy`
                   (default: two attempts).
-      workers, queue_dir, xla_cache_dir: ``repro``'s dispatch queue; not
-                  ported yet, they raise ``NotImplementedError``.
+      workers:    run the chunks in this many worker processes through
+                  the lease queue, under ``retry_policy`` (default: three
+                  attempts); see :func:`repro_torch.sim.dispatch.
+                  run_dispatched` for the whole contract. The result then
+                  also carries ``quarantined`` and the queue's telemetry.
+      queue_dir:  the work-queue directory for ``workers=`` (default: a
+                  temporary directory, or ``{checkpoint_dir}/.queue``).
+      xla_cache_dir: accepted and created for ``workers=`` (default
+                  ``{queue_dir}/xla_cache``) so the queue's layout is
+                  ``repro``'s; the port compiles no programs, and its
+                  workers share the checkout's CUDA kernel builds
+                  (``build/repro_torch/``) instead.
       device:     ``cuda`` by default (raises without one); ``"cpu"``
                   runs the plain versions.
       positions:  ``(n_seeds, n_slots + 1, N, 2)`` frames per seed for
@@ -655,10 +673,16 @@ def run(ps: Sequence[FGParams] | FGParams, cfg: SimConfig,
 
     Every row of the result equals its own ``simulate(p, cfg, seed)``.
     """
-    if workers is not None or queue_dir is not None or xla_cache_dir is not None:
-        raise NotImplementedError(
-            "repro_torch has no multi-process sweep dispatch yet (workers, "
-            "queue_dir, xla_cache_dir: ROADMAP queue 1, item 6)")
+    if workers is not None:
+        from repro_torch.sim import dispatch
+
+        return dispatch.run_dispatched(
+            ps, cfg, seeds, reduce=reduce, warmup_frac=warmup_frac,
+            chunk_size=chunk_size, quantiles=quantiles, tau_grid=tau_grid,
+            n_devices=n_devices, checkpoint_dir=checkpoint_dir,
+            resume=resume, retry_policy=retry_policy, workers=workers,
+            queue_dir=queue_dir, xla_cache_dir=xla_cache_dir, device=device,
+            positions=positions)
     device = resolve_device(device, "sweep.run")
     setup = _prepare(ps, cfg, seeds, reduce, warmup_frac, chunk_size,
                      quantiles, tau_grid, n_devices, device, positions)

@@ -43,8 +43,12 @@ from repro_torch.core import dde as t_dde
 from repro_torch.core import meanfield as t_mf
 from repro_torch.core import mobility as t_mob
 from repro_torch.numerics import fma32, sqrt32
-from repro_torch.sim import (MOBILITY_MODELS, SimConfig, get_mobility,
-                             measure_contact_rate)
+import repro.sim as rsim
+import repro_torch.sim as tsim
+from repro_torch.configs.fg_paper import paper_params
+from repro_torch.sim import (MOBILITY_MODELS, MobilityModel, SimConfig,
+                             get_mobility, measure_contact_rate,
+                             register_mobility, simulate)
 from repro_torch.sim.mobility import ManhattanState
 
 GEOM = dict(speed=t_paper.SPEED_DEFAULT, r_tx=t_paper.R_TX,
@@ -465,3 +469,42 @@ def test_no_fallback_without_a_card():
             lambda: t_paper.paper_contact_model(mobility="manhattan")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+# ---------------------------------------------- a user's model, the exports
+
+def test_registered_model_runs_through_simulate():
+    """``register_mobility`` puts a user's model under its name: rdm's own
+    functions under another name run rdm's run bit for bit, and a model
+    whose nodes never move keeps every node's zone membership."""
+    rdm = get_mobility("rdm")
+    cfg = dict(n_nodes=40, n_slots=64, sample_every=8)
+    p = paper_params(lam=0.2, M=1)
+    try:
+        assert register_mobility(MobilityModel(
+            name="rdm-again", init=rdm.init, step=rdm.step)) is \
+            MOBILITY_MODELS["rdm-again"]
+        register_mobility(MobilityModel(
+            name="parked", init=rdm.init, step=lambda k1, k2, s, cfg: s))
+        want = simulate(p, SimConfig(**cfg), seed=3, device="cpu")
+        got = simulate(p, SimConfig(**cfg, mobility="rdm-again"), seed=3,
+                       device="cpu")
+        for f in ("availability", "busy_frac", "stored_info", "n_in_rz"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+        parked = simulate(p, SimConfig(**cfg, mobility="parked"), seed=3,
+                          device="cpu")
+        assert np.all(parked.n_in_rz == parked.n_in_rz[0])
+        assert not np.all(want.n_in_rz == want.n_in_rz[0])
+        assert np.all(np.isfinite(parked.availability))
+    finally:
+        MOBILITY_MODELS.pop("rdm-again", None)
+        MOBILITY_MODELS.pop("parked", None)
+    with pytest.raises(ValueError, match="unknown mobility model"):
+        get_mobility("parked")
+
+
+def test_sim_exports_repro_sims_names():
+    assert set(rsim.__all__) <= set(tsim.__all__)
+    for name in tsim.__all__:
+        assert getattr(tsim, name) is not None, name

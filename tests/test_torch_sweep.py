@@ -13,8 +13,10 @@
     ``o_tau_num`` within 1e-6 relative (float32 sums in another order).
 (e) ``SweepSummary``'s keys, shapes and dtypes and ``host_bytes`` equal
     ``repro``'s; ``expected_shapes`` equals real chunk outputs.
-(f) What the port does not run raises; ``simulate_batch`` is the trace
-    sweep; ``scan_carry_bytes`` is ``repro``'s plus the key's 8 bytes.
+(f) What the port does not run raises, and the dispatch queue's
+    arguments are accepted (one worker equals the in-process sweep);
+    ``simulate_batch`` is the trace sweep; ``scan_carry_bytes`` is
+    ``repro``'s plus the key's 8 bytes.
 
 ``repro``'s sweep runs with ``jax.lax.optimization_barrier`` in place of
 its ``shared_barrier`` (which fails under this JAX), patched inside each
@@ -360,13 +362,22 @@ def test_schema_equals_repro_and_expected_shapes(working_barrier, kind,
 
 # ---------------------------------------------------------------- refusals
 
-def test_refusals():
+def test_refusals(tmp_path, monkeypatch):
     ps = _pair()[1]
     cfg = SimConfig(**GEOM)
-    for kw in (dict(workers=2), dict(queue_dir="q"),
-               dict(xla_cache_dir="x")):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            sweep.run(ps, cfg, [0], device="cpu", **kw)
+    # the dispatch queue's arguments are accepted: one worker process on a
+    # one-chunk sweep equals the in-process sweep
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    short = SimConfig(**dict(GEOM, n_slots=16))
+    want = sweep.run(ps, short, [0], reduce="final", device="cpu")
+    got = sweep.run(ps, short, [0], reduce="final", device="cpu", workers=1,
+                    queue_dir=str(tmp_path / "q"),
+                    xla_cache_dir=str(tmp_path / "x"))
+    assert got.plan.n_chunks == 1 and got.coverage.all()
+    assert set(got.stats) == set(want.stats)
+    for k in want.stats:
+        np.testing.assert_array_equal(got.stats[k], want.stats[k], err_msg=k)
+    assert (tmp_path / "x").is_dir()
     with pytest.raises(NotImplementedError, match="several cards"):
         sweep.run(ps, cfg, [0], device="cpu", n_devices=2)
     with pytest.raises(ValueError, match="model count"):
